@@ -1,0 +1,157 @@
+"""Mapping: windowed bundle adjustment of atlases, decoders and poses.
+
+The port of ``myslam_tpu.engine.mapper``'s single-device frame mapper,
+run eagerly.  The keyframe window is described by slot arrays:
+
+  * the window has w_max slots; slot i holds an index into the keyframe
+    store's imagery (the current frame sits in the scratch slot);
+  * the per-iteration ray budget is split round-robin over the active
+    slots (ray r reads from slot r % n_slots);
+  * pose freezing (the oldest window frame; all frames when joint_opt is
+    off) is a per-slot 0/1 mask applied by detaching.
+
+A fresh Adam per mapped frame, with the reference's per-group learning
+rates (decoders, planes, c_planes, poses); beta is frozen when
+``rendering.learnable_beta`` is off; ``lr_factor`` scales the map
+groups only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from myslam_torch.core.geometry import ray_aabb_exit_t, rays_from_uv
+from myslam_torch.core.losses import color_loss, depth_loss, sdf_losses
+from myslam_torch.core.quaternion import cam_pose_to_matrix, \
+    matrix_to_cam_pose
+from myslam_torch.engine.camera import Camera
+from myslam_torch.engine.keyframes import KeyframeStore
+from myslam_torch.models.planes import MapState
+from myslam_torch.ops.pixel_gather import gather_rgb, gather_scalar
+from myslam_torch.render.renderer import SceneGeometry, make_queries, \
+    render_core
+
+
+def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
+                importance: bool = True):
+    """The per-iteration mapping loss and the optimizer factory."""
+    m = cfg["mapping"]
+    n_rays = int(m["pixels"])
+    w_color, w_depth = float(m["w_color"]), float(m["w_depth"])
+    w_fs, w_center, w_tail = (float(m["w_sdf_fs"]),
+                              float(m["w_sdf_center"]),
+                              float(m["w_sdf_tail"]))
+    lr = m["lr"]
+    learnable_beta = bool(cfg["rendering"].get("learnable_beta", True))
+    quad_dtype = torch.bfloat16 if bool(m.get("map_bf16", False)) else None
+    HW = cam.H * cam.W
+
+    def make_optimizer(ms: MapState, poses: torch.Tensor, lr_factor: float):
+        dec = ms.decoder
+        dec_params = dec.mlp_params() + ([dec.beta] if learnable_beta
+                                         else [])
+        return torch.optim.Adam([
+            {"params": dec_params,
+             "lr": float(lr["decoders_lr"]) * lr_factor},
+            {"params": [ms.sdf_atlas],
+             "lr": float(lr["planes_lr"]) * lr_factor},
+            {"params": [ms.color_atlas],
+             "lr": float(lr["c_planes_lr"]) * lr_factor},
+            {"params": [poses], "lr": float(m["joint_opt_cam_lr"])},
+        ])
+
+    def loss_fn(ms: MapState, poses, pose_mask, slot_kf, n_slots,
+                kf_colors, kf_depths, draws):
+        """One iteration's loss.  Draws, in order: pixel columns, pixel
+        rows (``randint``), then the renderer's (build_z_vals_core)."""
+        dev = poses.device
+        poses = torch.where(pose_mask[:, None] > 0, poses, poses.detach())
+        c2ws = cam_pose_to_matrix(poses)
+        slot_of_ray = torch.arange(n_rays, device=dev) % n_slots
+        kf_of_ray = slot_kf[slot_of_ray]
+        i = draws.randint((n_rays,), 0, cam.W).to(torch.float32)
+        j = draws.randint((n_rays,), 0, cam.H).to(torch.float32)
+        flat = kf_of_ray * HW + j.long() * cam.W + i.long()
+        px_depth = gather_scalar(kf_depths, flat)
+        px_color = gather_rgb(kf_colors, flat).to(torch.float32)
+        rays_o, rays_d = rays_from_uv(i, j, c2ws[slot_of_ray], cam.fx,
+                                      cam.fy, cam.cx, cam.cy)
+        t_exit = ray_aabb_exit_t(rays_o.detach(), rays_d.detach(),
+                                 scene.bound_tensor(dev))
+        inside = t_exit >= px_depth  # depth-0 rays pass, as the reference
+        depth, color, sdf, z_vals = render_core(
+            draws, scene, rays_o, rays_d, px_depth, importance,
+            make_queries(ms, scene, quad_dtype=quad_dtype))
+        dmask = inside & (px_depth > 0)
+        loss = sdf_losses(sdf, z_vals, px_depth, dmask, scene.truncation,
+                          w_fs, w_center, w_tail)
+        loss = loss + w_color * color_loss(px_color, color, inside)
+        loss = loss + w_depth * depth_loss(px_depth, depth, dmask)
+        return loss
+
+    return loss_fn, make_optimizer
+
+
+def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
+                      selector, w_max: int, scratch_slot: int,
+                      importance: bool = True):
+    """One mapped frame: scratch-imagery write, window selection, the
+    iterations, masked pose write-back and keyframe admission.
+
+    Returns map_frame(ms, store, est (n, 4, 4), color_u8 (H, W, 3),
+    depth_u16 (H, W), inv_q, gt_c2w (4, 4), idx, draws, *, iters,
+    lr_factor, joint_opt, admit) -> losses (iters,) on the device.
+    ``ms``, ``store`` and ``est`` are updated in place.  Draws: the
+    selector's, then each iteration's (``loss_fn``).
+    """
+    loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance)
+
+    def map_frame(ms: MapState, store: KeyframeStore, est, color_u8,
+                  depth_u16, inv_q: float, gt_c2w, idx: int, draws, *,
+                  iters: int, lr_factor: float, joint_opt: bool,
+                  admit: bool):
+        count = store.count
+        with torch.no_grad():
+            store.colors[scratch_slot] = (
+                color_u8.to(torch.float32) * (1.0 / 255.0)).to(
+                    store.colors.dtype)
+            store.depths[scratch_slot] = depth_u16.to(torch.float32) * inv_q
+            cur_c2w = est[idx]
+            slot_kf, n_slots, pose_mask = selector(
+                store.est_c2w, count, cur_c2w, store.depths[scratch_slot],
+                draws, joint_opt)
+            c2ws = store.est_c2w[slot_kf]
+            is_cur = torch.arange(w_max, device=est.device) == n_slots - 1
+            c2ws = torch.where(is_cur[:, None, None], cur_c2w[None], c2ws)
+        poses = matrix_to_cam_pose(c2ws).requires_grad_()
+        opt = make_optimizer(ms, poses, lr_factor)
+        losses = []
+        for _ in range(iters):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(ms, poses, pose_mask, slot_kf, n_slots,
+                           store.colors, store.depths, draws)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+
+        with torch.no_grad():
+            # Keyframe poses of the optimized window slots; the
+            # trajectory only for the current frame, under joint_opt.
+            c2ws_out = cam_pose_to_matrix(poses)
+            old = store.est_c2w[slot_kf]
+            store.est_c2w[slot_kf] = torch.where(
+                pose_mask[:, None, None] > 0, c2ws_out, old)
+            if joint_opt:
+                est[idx] = c2ws_out[n_slots - 1]
+            # Admission: the scratch slot's imagery and poses go to slot
+            # ``count``; without admission the poses stay in the scratch.
+            dst = count if admit else scratch_slot
+            if admit:
+                store.colors[dst] = store.colors[scratch_slot]
+                store.depths[dst] = store.depths[scratch_slot]
+            store.est_c2w[dst] = est[idx]
+            store.gt_c2w[dst] = gt_c2w
+        return torch.stack(losses) if losses else torch.zeros(
+            (0,), device=est.device)
+
+    return map_frame

@@ -1,0 +1,241 @@
+"""SLAM orchestration: the tracking/mapping interleave on one device.
+
+The serialized order of the reference's two processes, per every_frame
+group E:
+
+    map(0) | track(1..E) map(E) | track(E+1..2E) map(2E) | ... map(last)
+
+Between two mapped frames the map is frozen, so the tracked frames of a
+group are buffered and tracked together at the next mapped frame
+(``make_group_tracker`` packs the quads once per group); the results are
+those of tracking each frame as it arrives.
+
+This is the single-device, non-pipelined mode of
+``myslam_tpu.engine.scheduler.SLAMSystem``: no checkpoints, meshing,
+visualizer, supervision or parallel modes.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from myslam_torch import resolve_device
+from myslam_torch.core.sampling import TorchDraws
+from myslam_torch.engine.camera import Camera
+from myslam_torch.engine.keyframes import KeyframeStore, make_window_selector
+from myslam_torch.engine.mapper import make_frame_mapper
+from myslam_torch.engine.tracker import make_group_tracker
+from myslam_torch.models.config import get_model
+from myslam_torch.models.planes import compute_bound, init_map_state, \
+    make_layout
+from myslam_torch.render.renderer import SceneGeometry
+from myslam_torch.tools.eval_ate import evaluate_run
+from myslam_torch.utils.datasets import PacketPrefetcher, build_packet, \
+    get_dataset
+
+
+class SLAMSystem:
+    """Owns the scene state and drives the tracking/mapping loop.
+
+    Every random draw of tracking and mapping comes from one
+    ``TorchDraws`` seeded with ``seed``.  ``frame_log`` collects one
+    record per frame: host and device milliseconds of its tracking (per
+    frame of its group) and mapping, and the losses.
+    """
+
+    def __init__(self, cfg: dict, seed: int = 0, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.seed = int(seed)
+        self.cam = Camera.from_cfg(cfg)
+        self.bound = compute_bound(cfg)
+        c_dim = int(cfg["model"]["c_dim"])
+        pres, cres = cfg["planes_res"], cfg["c_planes_res"]
+        self.sdf_layout = make_layout(
+            self.bound, [pres["coarse"], pres["fine"]], c_dim)
+        self.color_layout = make_layout(
+            self.bound, [cres["coarse"], cres["fine"]], c_dim)
+        r = cfg["rendering"]
+        self.scene = SceneGeometry(
+            sdf_layout=self.sdf_layout,
+            color_layout=self.color_layout,
+            bound=tuple(map(tuple, self.bound.tolist())),
+            truncation=float(cfg["model"]["truncation"]),
+            n_stratified=int(r["n_stratified"]),
+            n_importance=int(r["n_importance"]),
+            perturb=bool(r["perturb"]),
+            color_topk=int(r.get("color_topk", 0)),
+        )
+
+        # The initial map comes from a CPU generator, so a seed gives the
+        # same map on every device.
+        gen = torch.Generator().manual_seed(self.seed)
+        self.map_state = init_map_state(
+            gen, self.sdf_layout, self.color_layout, get_model(cfg, gen),
+            device=self.device)
+        self.draws = TorchDraws(self.seed, self.device)
+
+        self.dataset = get_dataset(cfg)
+        self.n_img = len(self.dataset)
+        m = cfg["mapping"]
+        self.every_frame = int(m["every_frame"])
+        self.keyframe_every = int(m["keyframe_every"])
+        self.window_size = int(m["mapping_window_size"])
+        self.joint_opt_enabled = bool(m["joint_opt"])
+        self.gt_camera = bool(cfg["tracking"].get("gt_camera", False))
+
+        mapped = sorted(set(list(range(0, self.n_img, self.every_frame))
+                            + [self.n_img - 1]))
+        n_keyframes = sum(1 for i in mapped if i % self.keyframe_every == 0)
+        # Keyframes, plus one spare, plus the scratch slot (the last).
+        self.store = KeyframeStore(n_keyframes + 2, self.cam, self.device)
+        self.scratch_slot = self.store.capacity - 1
+        self.w_max = self.window_size + 2  # picks + last two + current
+
+        self.group_tracker = make_group_tracker(cfg, self.scene, self.cam)
+        selector = make_window_selector(
+            self.cam, self.store.capacity, self.window_size, self.w_max,
+            self.scratch_slot,
+            method=m.get("keyframe_selection_method", "overlap"))
+        # The depth-less sampling branch is built only when some frame in
+        # the store has depth holes (see _map_frame).
+        self._mappers = {
+            imp: make_frame_mapper(cfg, self.scene, self.cam, selector,
+                                   self.w_max, self.scratch_slot,
+                                   importance=imp)
+            for imp in (False, True)}
+        self._iters_first = int(m["iters_first"])
+        self._iters = int(m["iters"])
+        self._lr_first_factor = float(m["lr_first_factor"])
+        self._lr_factor = float(m["lr_factor"])
+
+        self.est = torch.zeros((self.n_img, 4, 4), dtype=torch.float32,
+                               device=self.device)
+        self.gt_poses = np.zeros((self.n_img, 4, 4), np.float32)
+        self._track_buf: list = []
+        self.frame_log: list[dict] = []
+        # Optional hook, called as f(self, idx) after each mapped frame.
+        self.on_map_done = None
+
+    # -- helpers -------------------------------------------------------------
+
+    def _to_dev(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        t = torch.as_tensor(a if dtype is None else a.astype(dtype))
+        return t.to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _timed(self, fn):
+        """Run fn(); returns (result, host ms to return, ms to the device
+        finishing its work)."""
+        self._sync()
+        t0 = time.perf_counter()
+        out = fn()
+        t_host = time.perf_counter()
+        self._sync()
+        t_dev = time.perf_counter()
+        return out, (t_host - t0) * 1e3, (t_dev - t0) * 1e3
+
+    def _make_packet(self, dataset, idx: int):
+        t = self.cfg["tracking"]
+        need_full = idx % self.every_frame == 0 or idx == self.n_img - 1
+        return build_packet(
+            dataset, idx, iters=int(t["iters"]), n_px=int(t["pixels"]),
+            ie_h=int(t["ignore_edge_H"]), ie_w=int(t["ignore_edge_W"]),
+            need_full=need_full, seed=self.seed)
+
+    # -- tracking and mapping --------------------------------------------------
+
+    def _flush_track_buf(self) -> None:
+        """Track the buffered frames of one group against the frozen map."""
+        buf, self._track_buf = self._track_buf, []
+        if not buf:
+            return
+        idx0 = buf[0][0]
+
+        def stack(name, dtype=None):
+            return self._to_dev(
+                np.stack([getattr(p, name) for _, p, _ in buf]), dtype)
+
+        def run():
+            return self.group_tracker(
+                self.map_state, self.est, idx0,
+                stack("px_i", np.int64), stack("px_j", np.int64),
+                stack("px_color"), stack("px_depth"), self.draws)
+
+        (_, loss_first, loss_best), host_ms, ms = self._timed(run)
+        for g, (_, _, rec) in enumerate(buf):
+            rec["track_host_ms"] = host_ms / len(buf)
+            rec["track_ms"] = ms / len(buf)
+            rec["track_loss_first"] = loss_first[g]
+            rec["track_loss_best"] = loss_best[g]
+
+    def _map_frame(self, idx: int, pkt, rec: dict) -> None:
+        first = idx == 0
+        joint_opt = self.joint_opt_enabled and self.store.count > 4
+        admit = idx % self.keyframe_every == 0
+        needs_importance = pkt.has_depthless or any(
+            self.store.has_depthless[:self.store.count])
+        mapper = self._mappers[needs_importance]
+
+        def run():
+            return mapper(
+                self.map_state, self.store, self.est,
+                self._to_dev(pkt.color_u8),
+                self._to_dev(pkt.depth_u16, np.float32), pkt.depth_inv_q,
+                self._to_dev(pkt.gt_c2w), idx, self.draws,
+                iters=self._iters_first if first else self._iters,
+                lr_factor=(self._lr_first_factor if first
+                           else self._lr_factor),
+                joint_opt=joint_opt, admit=admit)
+
+        losses, host_ms, ms = self._timed(run)
+        if admit:
+            self.store.note_admitted(pkt.has_depthless)
+        rec["map_host_ms"] = host_ms
+        rec["map_ms"] = ms
+        rec["map_iters"] = int(losses.shape[0])
+        rec["map_loss_first"] = losses[0]
+        rec["map_loss_last"] = losses[-1]
+
+    # -- main loop -------------------------------------------------------------
+
+    def run_loop(self) -> None:
+        """Track and map every frame of the dataset."""
+        for idx, pkt in PacketPrefetcher(self.dataset, range(self.n_img),
+                                         self._make_packet):
+            self.gt_poses[idx] = pkt.gt_c2w
+            rec = {"frame": idx}
+            self.frame_log.append(rec)
+            if idx == 0 or self.gt_camera:
+                self.est[idx] = self._to_dev(pkt.gt_c2w)
+            else:
+                self._track_buf.append((idx, pkt, rec))
+            if idx % self.every_frame == 0 or idx == self.n_img - 1:
+                # The group's poses must be in the trajectory before the
+                # mapping window is assembled.
+                self._flush_track_buf()
+                self._map_frame(idx, pkt, rec)
+                if self.on_map_done is not None:
+                    self.on_map_done(self, idx)
+        self._flush_track_buf()
+        self._sync()
+        # Device scalars of the log become floats once, after the loop.
+        for rec in self.frame_log:
+            for k, v in rec.items():
+                if isinstance(v, torch.Tensor):
+                    rec[k] = float(v)
+
+    @property
+    def estimates(self) -> np.ndarray:
+        return self.est.detach().cpu().numpy()
+
+    def ate(self) -> dict:
+        """ATE of the tracked trajectory against the ground truth."""
+        return evaluate_run(self.estimates, self.gt_poses,
+                            float(self.cfg.get("scale", 1)))
