@@ -5,16 +5,31 @@
 
 Phases, one JSON line each:
 
-  1. build   -- compile the CUDA kernels from myslam_torch/csrc;
-  2. kernels -- kernel K1 (tri-plane sample forward) and K2 (its backward)
-                against their plain PyTorch versions at the main path's
-                shapes (mapping: 160,000 SDF and 48,000 color points;
-                f32 and bf16 quads), with their times, the plain
-                versions' times, a library yardstick and the bound;
-  3. slam    -- the main path: SLAMSystem on configs/Synthetic/room.yaml
-                at full width for 13 frames (frame 0 mapped for 1000
-                iterations, 12 tracked frames, frames 4, 8 and 12
-                mapped), with per-frame times, launch counts and ATE.
+  1. build        -- compile the CUDA kernels from myslam_torch/csrc, one
+                     nvcc per source, all at once, into one library;
+  2. kernels      -- K1 (tri-plane sample forward) and K2 (its backward)
+                     against their plain PyTorch versions at the SLAM
+                     loop's shapes (mapping: 160,000 SDF and 48,000 color
+                     points, f32 and bf16 quads; the exact lane's 160,000
+                     color points, f32), and K3 (the forward with
+                     the coarse level in shared memory) against its plain
+                     version and K1 at the SDF shape (bf16: one block;
+                     f32: a 2-block cluster), with their times, the plain
+                     versions' times, a library yardstick and the bound;
+  3. slam         -- the SLAM loop: SLAMSystem on configs/Synthetic/room.yaml
+                     at full width for 13 frames (frame 0 mapped for 1000
+                     iterations, 12 tracked frames, frames 4, 8 and 12
+                     mapped), with per-frame times, K1/K2 launch counts
+                     and ATE;
+  4. bench_scatter -- K3's path: tools/bench_scatter.py's gather and
+                     scatter sections at Replica room0 scale, one line per
+                     strategy; K3 must agree with K1 and its plain version
+                     on both room0 atlases and run in clusters of at
+                     least 3 blocks;
+  5. bench_exact  -- bench_torch.py's exact lane on room.yaml at full
+                     width, cut to 13 frames (5 warmup): fps, ATE, K1/K2
+                     launches, and its final checkpoint loaded back into a
+                     fresh SLAMSystem bit for bit.
 
 Then the card's name and power limit, the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -26,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -36,9 +52,22 @@ DEVICE = "cuda"
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# Launch counts of the main path: per tracking and per mapping iteration,
-# one SDF sample and one top-K color sample, each differentiated once.
+# Launch counts of the SLAM loop: per tracking and per mapping iteration,
+# one SDF sample and one color sample, each differentiated once, by K1
+# and K2.  K3 is not on that path (bench_scatter drives it).
 SAMPLES_PER_ITER = 2
+SLAM_KERNELS = ("plane_sample_fwd", "plane_sample_bwd")
+# The samples the kernels phase checks, (layout, points, quad dtypes):
+# the mapping samples of the top-K lane (SDF at all 40 samples of 4,000
+# rays, color at the top 12) and the exact lane's color sample at all 40
+# (f32 quad: map_bf16 is off there).
+KERNEL_CASES = (("sdf", 160_000, ("float32", "bfloat16")),
+                ("color", 48_000, ("float32", "bfloat16")),
+                ("color", 160_000, ("float32",)))
+# bench_scatter at room0 scale: points and timed repetitions.
+BENCH_POINTS = 160_000
+BENCH_ITERS = 10
+EXACT_WARMUP = 5
 
 
 def emit(obj) -> None:
@@ -73,8 +102,8 @@ def main_scene(cfg):
     bound = compute_bound(cfg)
     c = int(cfg["model"]["c_dim"])
     p, q = cfg["planes_res"], cfg["c_planes_res"]
-    return (make_layout(bound, [p["coarse"], p["fine"]], c),
-            make_layout(bound, [q["coarse"], q["fine"]], c))
+    return {"sdf": make_layout(bound, [p["coarse"], p["fine"]], c),
+            "color": make_layout(bound, [q["coarse"], q["fine"]], c)}
 
 
 def grid_sample_features(planes, layout, p_nor):
@@ -98,9 +127,17 @@ def grid_sample_features(planes, layout, p_nor):
     return torch.cat(feats, dim=-1)
 
 
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time for the work on the card, and what sets it."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_FLOPS * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def check_kernels(layouts) -> list[dict]:
-    """K1 and K2 against their plain versions; returns one record per
-    (layout, dtype) case."""
+    """K1 and K2 (with and without the quad gradient) against their plain
+    versions, and K3 against its plain version and K1 on the SDF layout;
+    returns one record per (layout, points, dtype) case."""
     import torch
 
     from myslam_torch.ops import cuda_sample
@@ -109,8 +146,8 @@ def check_kernels(layouts) -> list[dict]:
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cases = []
-    for name, layout, n in (("sdf", layouts[0], 160_000),
-                            ("color", layouts[1], 48_000)):
+    for name, n, dtypes in KERNEL_CASES:
+        layout = layouts[name]
         C, L = layout.c_dim, layout.n_levels
         atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
                                    device=dev)
@@ -125,22 +162,26 @@ def check_kernels(layouts) -> list[dict]:
         grid_in = p_nor.clone().requires_grad_()
         lib_out = grid_sample_features(planes, layout, grid_in)
         lib_gbar = torch.randn_like(lib_out)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, d) for d in dtypes):
             quad = pack_quad(atlas, layout).to(dtype).contiguous()
             out = cuda_sample.plane_sample_fwd(quad, layout, p_nor)
             ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p_nor)
             qg, pg = cuda_sample.plane_sample_bwd(gbar, quad, layout, p_nor)
+            _, pg_only = cuda_sample.plane_sample_bwd(
+                gbar, quad, layout, p_nor, need_quad_grad=False)
             rqg, rpg = cuda_sample.plane_sample_bwd_ref(gbar, quad, layout,
                                                         p_nor)
             torch.cuda.synchronize()
             f_err, f_rel = scaled_err(out, ref)
             q_err, q_rel = scaled_err(qg, rqg)
             p_err, p_rel = scaled_err(pg, rpg)
+            po_err, po_rel = scaled_err(pg_only, rpg)
             # Tolerance: the same float32 products summed in another order
             # (FMA contraction; atomics against index_add_; a warp
             # reduction against torch.sum): 1e-5 of the largest value.
             for what, rel in (("forward", f_rel), ("quad_grad", q_rel),
-                              ("p_grad", p_rel)):
+                              ("p_grad", p_rel),
+                              ("p_grad without quad_grad", po_rel)):
                 if not rel <= 1e-5:
                     raise AssertionError(
                         f"{name} {dtype} {what}: error {rel:.3e} of the "
@@ -176,28 +217,76 @@ def check_kernels(layouts) -> list[dict]:
             lib_bwd = time_ms(lambda: torch.autograd.grad(
                 lib_out, planes + [grid_in], lib_gbar, retain_graph=True),
                 reps=5)
-
-            def bound(nbytes, ops):
-                t_b = nbytes / HBM_BYTES_PER_S * 1e3
-                t_o = ops / F32_FLOPS * 1e3
-                return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
-
-            fb, fby = bound(fwd_bytes, fwd_ops)
-            bb, bby = bound(bwd_bytes, bwd_ops)
+            fb, fby = bound_ms(fwd_bytes, fwd_ops)
+            bb, bby = bound_ms(bwd_bytes, bwd_ops)
             cases.append({
                 "layout": name, "rows": layout.total_rows, "points": n,
                 "quad_dtype": str(dtype).replace("torch.", ""),
                 "fwd": {"max_abs_err": f_err, "ms": ms_fwd,
                         "plain_ms": plain_fwd, "library_ms": lib_fwd,
                         "bytes": fwd_bytes, "bound_ms": fb, "bound_by": fby},
-                "bwd": {"max_abs_err": max(q_err, p_err),
+                "bwd": {"max_abs_err": max(q_err, p_err, po_err),
                         "quad_grad_err": q_err, "p_grad_err": p_err,
+                        "p_grad_only_err": po_err,
                         "ms": ms_bwd, "ms_p_grad_only": ms_bwd_p,
                         "plain_ms": plain_bwd, "library_ms": lib_bwd,
                         "bytes": bwd_bytes, "bound_ms": bb, "bound_by": bby},
             })
+            if name == "sdf":
+                cases[-1]["smem"] = check_smem(
+                    quad, layout, p_nor, ref, out, plain_fwd, lib_fwd,
+                    fwd_bytes, fb, fby)
             emit({"phase": "kernels", **cases[-1]})
     return cases
+
+
+def check_smem(quad, layout, p_nor, ref, k1_out, plain_ms, lib_ms, nbytes,
+               b_ms, b_by) -> dict:
+    """K3 on the same inputs as K1: against the plain version and K1 (the
+    same function, so the same bound, plain version and yardstick)."""
+    import torch
+
+    from myslam_torch.ops import smem_sample
+
+    out = smem_sample.plane_sample_fwd_smem(quad, layout, p_nor)
+    torch.cuda.synchronize()
+    launch = dict(smem_sample.LAST_LAUNCH)
+    err, rel = scaled_err(out, ref)
+    _, rel_k1 = scaled_err(out, k1_out)
+    # Tolerance: the same float32 products as the plain version and K1,
+    # FMA-contracted: 1e-5 of the largest value.
+    if not (rel <= 1e-5 and rel_k1 <= 1e-5):
+        raise AssertionError(
+            f"K3 {quad.dtype}: error {rel:.3e} against the plain version, "
+            f"{rel_k1:.3e} against K1, of the largest value; limit 1e-5")
+    want = smem_sample.coarse_cluster_blocks(layout, quad.dtype)
+    if launch["cluster_blocks"] != want or want != (
+            1 if quad.dtype == torch.bfloat16 else 2):
+        raise AssertionError(f"K3 {quad.dtype}: cluster {launch}")
+    return {"max_abs_err": err, "rel_err_vs_k1": rel_k1, **launch,
+            "ms": time_ms(lambda: smem_sample.plane_sample_fwd_smem(
+                quad, layout, p_nor)),
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def expected_launches(slam) -> int:
+    """K1 (and K2) launches a finished run must have made: one SDF and
+    one color sample per tracking and per mapping iteration."""
+    t_iters = int(slam.cfg["tracking"]["iters"])
+    tracked = sum("track_ms" in r for r in slam.frame_log)
+    mapped = sum(r.get("map_iters", 0) for r in slam.frame_log)
+    return SAMPLES_PER_ITER * (t_iters * tracked + mapped)
+
+
+def check_launches(launches: dict, expected: int) -> None:
+    """K1 and K2 ran ``expected`` times each, K3 never (not on the SLAM
+    loop's path)."""
+    got = {name: launches[name] for name in SLAM_KERNELS}
+    if (got != {name: expected for name in SLAM_KERNELS} or expected == 0
+            or launches["plane_sample_fwd_smem"] != 0):
+        raise AssertionError(f"launches {launches}, expected {expected} "
+                             f"each of {SLAM_KERNELS} and no K3")
 
 
 def run_slam(cfg) -> dict:
@@ -233,20 +322,18 @@ def run_slam(cfg) -> dict:
     mapped = [r for r in slam.frame_log if "map_ms" in r]
     for r in slam.frame_log:
         emit({"phase": "slam_frame", **r})
-    before = {name: 0 for name in launches}
+    before = {name: 0 for name in SLAM_KERNELS}
     for g in groups:
-        for name, count in g["launches"].items():
-            grown = count - before[name]
+        for name in SLAM_KERNELS:
+            grown = g["launches"][name] - before[name]
             if grown != SAMPLES_PER_ITER * g["iterations"]:
                 raise AssertionError(
                     f"{name}: {grown} launches in the group ending at frame "
                     f"{g['frame']}, expected {SAMPLES_PER_ITER} per each of "
                     f"its {g['iterations']} iterations")
         before = g["launches"]
-    expected = SAMPLES_PER_ITER * (t_iters * len(tracked)
-                                   + sum(r["map_iters"] for r in mapped))
-    if launches != {name: expected for name in launches} or expected == 0:
-        raise AssertionError(f"launches {launches}, expected {expected} each")
+    expected = expected_launches(slam)
+    check_launches(launches, expected)
     losses = [v for r in slam.frame_log for k, v in r.items()
               if "loss" in k]
     if not all(math.isfinite(v) for v in losses):
@@ -277,6 +364,92 @@ def run_slam(cfg) -> dict:
     return out
 
 
+def run_bench_scatter() -> dict:
+    """K3's path: the bench_scatter tool's gather and scatter sections at
+    room0 scale, with K3's launches counted from zero."""
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.tools import bench_scatter
+
+    cuda_sample.reset_launches()
+    t0 = time.perf_counter()
+    recs = bench_scatter.bench_gather(BENCH_POINTS, BENCH_ITERS, DEVICE,
+                                      seed=SEED, log=lambda s: None)
+    recs += bench_scatter.bench_scatter(BENCH_POINTS, BENCH_ITERS, DEVICE,
+                                        seed=SEED, log=lambda s: None)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_sample.LAUNCHES)
+    for rec in recs:
+        emit({"phase": "bench_scatter", **rec})
+    k3 = {r["atlas"]: r for r in recs if r.get("name") == "smem_bf16"}
+    for atlas in ("sdf-atlas(0.06m)", "color-atlas(0.03m)"):
+        rec = k3.get(atlas, {})
+        # Tolerance: K3 against K1 and the plain version on the same bf16
+        # quad, 1e-5 of the largest value.
+        if "skipped" in rec or not (
+                rec.get("rel_err_vs_k1_bf16", 1.0) <= 1e-5
+                and rec.get("rel_err_vs_plain_bf16", 1.0) <= 1e-5):
+            raise AssertionError(f"K3 on {atlas}: {rec}")
+    if not k3["sdf-atlas(0.06m)"]["cluster_blocks"] >= 3:
+        raise AssertionError(f"K3 on the room0 SDF atlas ran in a cluster "
+                             f"of {k3['sdf-atlas(0.06m)']['cluster_blocks']}")
+    if launches["plane_sample_fwd_smem"] == 0:
+        raise AssertionError("K3 was not launched by bench_scatter")
+    out = {"phase": "bench_scatter", "wall_s": wall, "launches": launches,
+           "points": BENCH_POINTS, "iters": BENCH_ITERS}
+    emit(out)
+    return out
+
+
+def run_bench_exact() -> dict:
+    """bench_torch.py's exact lane, cut to N_FRAMES, then its final
+    checkpoint loaded into a fresh SLAMSystem."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.ops import cuda_sample
+
+    args = bench_torch.parse_args([
+        "--lanes", "exact", "--frames", str(N_FRAMES),
+        "--warmup-frames", str(EXACT_WARMUP), "--seed", str(SEED),
+        "--device", DEVICE,
+        "--output", os.path.join("output", "chip_smoke", "bench")])
+    cuda_sample.reset_launches()
+    rec, slam = bench_torch.run_lane(args, exact=True, seed=SEED)
+    launches = dict(cuda_sample.LAUNCHES)
+    check_launches(launches, expected_launches(slam))
+    if not math.isfinite(rec["value"]) or rec["value"] <= 0:
+        raise AssertionError(f"exact lane fps {rec['value']}")
+    if not rec["ate_rmse_cm"] < 2.0:
+        raise AssertionError(f"exact lane ATE {rec['ate_rmse_cm']} cm")
+
+    t0 = time.perf_counter()
+    path = slam.finalize(checkpoint=True)
+    ckpt_s = time.perf_counter() - t0
+    fresh = SLAMSystem(slam.cfg, output=slam.output, seed=SEED + 1,
+                       device=DEVICE)
+    start = fresh.resume()
+    a, b = slam.map_state, fresh.map_state
+    same = {
+        "sdf_atlas": torch.equal(a.sdf_atlas, b.sdf_atlas),
+        "color_atlas": torch.equal(a.color_atlas, b.color_atlas),
+        "decoder": all(torch.equal(x, y) for x, y in zip(
+            a.decoder.state_dict().values(),
+            b.decoder.state_dict().values())),
+        "trajectory": torch.equal(slam.est, fresh.est) and np.array_equal(
+            slam.gt_poses, fresh.gt_poses),
+    }
+    if start != N_FRAMES or not all(same.values()):
+        raise AssertionError(f"checkpoint {path}: start {start}, {same}")
+    out = {"phase": "bench_exact", **rec, "launches": launches,
+           "expected_launches": expected_launches(slam),
+           "checkpoint": path, "checkpoint_s": ckpt_s,
+           "resume_start": start, "bit_equal": same}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -295,16 +468,18 @@ def main() -> int:
         return 2
 
     t0 = time.perf_counter()
-    cuda_sample.build()
+    library = cuda_sample.build()
     ptxas = [ln.strip() for ln in cuda_sample.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": cuda_sample.library_path(), "ptxas": ptxas})
+          "library": library, "ptxas": ptxas})
 
     cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
     cases = check_kernels(main_scene(cfg))
     slam = run_slam(cfg)
+    bench = run_bench_scatter()
+    run_bench_exact()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -312,23 +487,30 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
 
-    # The kernels line: each kernel at the main path's heaviest call, the
+    # The kernels line: each kernel at the heaviest call of its path, the
     # mapping SDF sample (160,000 points) on bf16 quads (map_bf16 in
-    # configs/Synthetic/room.yaml and in tracking).
+    # configs/Synthetic/room.yaml and in tracking).  K1/K2 launches are the
+    # SLAM loop's, K3's the bench_scatter phase's.
     head = next(c for c in cases
                 if c["layout"] == "sdf" and c["quad_dtype"] == "bfloat16")
     kernels = []
-    for name, key, replaces in (
-            ("plane_sample_fwd", "fwd",
-             "myslam_tpu/ops/pallas_sample.py:160"),
-            ("plane_sample_bwd", "bwd",
-             "myslam_tpu/ops/plane_sample.py:343")):
+    for name, key, source, replaces, launches in (
+            ("plane_sample_fwd", "fwd", "plane_sample.cu",
+             "myslam_tpu/ops/pallas_sample.py:160",
+             slam["launches"]["plane_sample_fwd"]),
+            ("plane_sample_bwd", "bwd", "plane_sample.cu",
+             "myslam_tpu/ops/plane_sample.py:343",
+             slam["launches"]["plane_sample_bwd"]),
+            ("plane_sample_fwd_smem", "smem", "plane_sample_smem.cu",
+             "myslam_tpu/ops/pallas_sample.py:82 and :262",
+             bench["launches"]["plane_sample_fwd_smem"])):
         rec = head[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "myslam_torch/csrc/plane_sample.cu",
-            "replaces": replaces, "launches": slam["launches"][name],
-            "max_abs_err": max(c[key]["max_abs_err"] for c in cases),
+            "source": f"myslam_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c[key]["max_abs_err"] for c in cases
+                               if key in c),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})

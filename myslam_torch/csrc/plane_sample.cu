@@ -7,12 +7,9 @@
 // K2 plane_sample_bwd replaces the hand-written VJP of the same function,
 // _sample_fused_bwd with _scatter_grad (plane_sample.py:328-378).
 //
-// Layout (the JAX layout): the quad atlas is (S, 4C), row r holding the
-// 2x2 bilinear neighbourhood [tl | tr | bl | br], C channels each; a
-// layout has L levels of 3 planes (xy, xz, yz) stacked row-major.  The
-// sample output is (N, L*4C) float32: per level, the three planes' rows
-// weighted in lane space by (0.5 + (wx-0.5)*sx) * (0.5 + (wy-0.5)*sy)
-// (sx = +1 on the right corners, sy = +1 on the bottom corners) and
+// Layout: see plane_common.cuh.  The sample output is (N, L*4C)
+// float32: per level, the three planes' rows weighted in lane space by
+// (0.5 + (wx-0.5)*sx) * (0.5 + (wy-0.5)*sy) (sx = +1 on the right corners, sy = +1 on the bottom corners) and
 // summed.  Index math: grid_sample align_corners=True, border clamp.
 //
 // What bounds them on an H100: bytes, not operations.  K1 does ~4 flops
@@ -35,62 +32,9 @@
 // scatter and the TPU's bf16 one-hot matmul route.  Simple and right
 // first: no TMA, no shared-memory staging, no tuning.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "plane_common.cuh"
 
-#define MAX_PLANES 12
 #define WARPS_PER_BLOCK 8
-
-struct PlaneTable {
-  int H[MAX_PLANES], W[MAX_PLANES], off[MAX_PLANES], au[MAX_PLANES],
-      av[MAX_PLANES];
-};
-
-struct PlaneCoord {
-  int row;
-  float wx, wy, in_x, in_y, half_w, half_h;
-};
-
-// Same float operations, in the same order, as plane_coords in
-// ops/cuda_sample.py and _plane_coords in the JAX package.
-__device__ __forceinline__ PlaneCoord plane_coord(const float p[3],
-                                                  const PlaneTable& t,
-                                                  int k) {
-  const float Wm1 = (float)t.W[k] - 1.0f;
-  const float Hm1 = (float)t.H[k] - 1.0f;
-  const float xr = (p[t.au[k]] + 1.0f) * 0.5f * Wm1;
-  const float yr = (p[t.av[k]] + 1.0f) * 0.5f * Hm1;
-  const float x = fminf(fmaxf(xr, 0.0f), Wm1);
-  const float y = fminf(fmaxf(yr, 0.0f), Hm1);
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  PlaneCoord c;
-  c.row = t.off[k] + (int)(y0 * (float)t.W[k] + x0);
-  c.wx = x - x0;
-  c.wy = y - y0;
-  c.in_x = (xr >= 0.0f && xr <= Wm1) ? 1.0f : 0.0f;
-  c.in_y = (yr >= 0.0f && yr <= Hm1) ? 1.0f : 0.0f;
-  c.half_w = 0.5f * Wm1;
-  c.half_h = 0.5f * Hm1;
-  return c;
-}
-
-__device__ __forceinline__ void load4(const float* __restrict__ src,
-                                      float (&g)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-  g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ src,
-                                      float (&g)[4]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  const float2 fa = __bfloat1622float2(a);
-  const float2 fb = __bfloat1622float2(b);
-  g[0] = fa.x; g[1] = fa.y; g[2] = fb.x; g[3] = fb.y;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -200,19 +144,6 @@ plane_sample_bwd_kernel(const float* __restrict__ gbar,
     p_grad[3 * pt + 1] = pg[1];
     p_grad[3 * pt + 2] = pg[2];
   }
-}
-
-static bool fill_table(PlaneTable* t, const int* planes, int n_levels) {
-  const int n_planes = 3 * n_levels;
-  if (n_planes < 1 || n_planes > MAX_PLANES) return false;
-  for (int k = 0; k < n_planes; ++k) {
-    t->H[k] = planes[5 * k];
-    t->W[k] = planes[5 * k + 1];
-    t->off[k] = planes[5 * k + 2];
-    t->au[k] = planes[5 * k + 3];
-    t->av[k] = planes[5 * k + 4];
-  }
-  return true;
 }
 
 // Plain C interface (bound with ctypes).  `planes` is a host array of

@@ -35,6 +35,8 @@ class KeyframeStore:
         # Whether each slot's depth map has holes: lets the mapper skip
         # the depth-less sampling branch when no frame has any.
         self.has_depthless: list[bool] = [False] * self.capacity
+        # Frame index of each admitted keyframe, by slot.
+        self.frame_ids: list[int] = []
         self.colors = torch.zeros((capacity, cam.H, cam.W, 3),
                                   dtype=color_dtype, device=device)
         self.depths = torch.zeros((capacity, cam.H, cam.W),
@@ -43,12 +45,14 @@ class KeyframeStore:
         self.est_c2w = eye.repeat(capacity, 1, 1)
         self.gt_c2w = eye.repeat(capacity, 1, 1)
 
-    def note_admitted(self, has_depthless: bool) -> int:
-        """Record a keyframe the mapper just wrote at slot ``count``."""
+    def note_admitted(self, has_depthless: bool, frame_id: int) -> int:
+        """Record a keyframe of frame ``frame_id`` that the mapper just
+        wrote at slot ``count``."""
         if self.count >= self.capacity - 1:
             raise RuntimeError("keyframe store full")
         pos = self.count
         self.has_depthless[pos] = bool(has_depthless)
+        self.frame_ids.append(int(frame_id))
         self.count += 1
         return pos
 

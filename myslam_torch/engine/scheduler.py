@@ -11,12 +11,15 @@ group are buffered and tracked together at the next mapped frame
 those of tracking each frame as it arrives.
 
 This is the single-device, non-pipelined mode of
-``myslam_tpu.engine.scheduler.SLAMSystem``: no checkpoints, meshing,
+``myslam_tpu.engine.scheduler.SLAMSystem``, with its loop timing
+(``frame_start_wall``, ``frame_times``, ``drain_wall``,
+``sync_after_frame``), the final checkpoint and ``resume``; no meshing,
 visualizer, supervision or parallel modes.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -31,10 +34,13 @@ from myslam_torch.engine.tracker import make_group_tracker
 from myslam_torch.models.config import get_model
 from myslam_torch.models.planes import compute_bound, init_map_state, \
     make_layout
+from myslam_torch.ops import cuda_sample
 from myslam_torch.render.renderer import SceneGeometry
 from myslam_torch.tools.eval_ate import evaluate_run
 from myslam_torch.utils.datasets import PacketPrefetcher, build_packet, \
     get_dataset
+from myslam_torch.utils.logger import latest_checkpoint, load_checkpoint, \
+    save_checkpoint
 
 
 class SLAMSystem:
@@ -43,12 +49,15 @@ class SLAMSystem:
     Every random draw of tracking and mapping comes from one
     ``TorchDraws`` seeded with ``seed``.  ``frame_log`` collects one
     record per frame: host and device milliseconds of its tracking (per
-    frame of its group) and mapping, and the losses.
+    frame of its group) and mapping, and the losses.  Checkpoints go to
+    ``<output>/ckpts`` (``output`` defaults to ``data.output``).
     """
 
-    def __init__(self, cfg: dict, seed: int = 0, device=None):
+    def __init__(self, cfg: dict, output: str | None = None, seed: int = 0,
+                 device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.output = output or cfg["data"]["output"]
         self.seed = int(seed)
         self.cam = Camera.from_cfg(cfg)
         self.bound = compute_bound(cfg)
@@ -119,6 +128,17 @@ class SLAMSystem:
         self.frame_log: list[dict] = []
         # Optional hook, called as f(self, idx) after each mapped frame.
         self.on_map_done = None
+        # Loop timing (perf_counter seconds): each frame's start, each
+        # frame's host time, and the end of the drain after the loop.
+        # Work is queued asynchronously, so throughput is measured from a
+        # frame's start to the drain, not from the per-frame times.
+        self.frame_start_wall: list[float] = []
+        self.frame_times: list[float] = []
+        self.drain_wall = 0.0
+        # Benchmarking: drain the device after this frame, so a window
+        # starting at the next frame holds no backlog of frame 0's work.
+        self.sync_after_frame: int | None = None
+        self._build_seconds_at_start = cuda_sample.BUILD_SECONDS
 
     # -- helpers -------------------------------------------------------------
 
@@ -196,7 +216,7 @@ class SLAMSystem:
 
         losses, host_ms, ms = self._timed(run)
         if admit:
-            self.store.note_admitted(pkt.has_depthless)
+            self.store.note_admitted(pkt.has_depthless, idx)
         rec["map_host_ms"] = host_ms
         rec["map_ms"] = ms
         rec["map_iters"] = int(losses.shape[0])
@@ -205,10 +225,21 @@ class SLAMSystem:
 
     # -- main loop -------------------------------------------------------------
 
-    def run_loop(self) -> None:
-        """Track and map every frame of the dataset."""
-        for idx, pkt in PacketPrefetcher(self.dataset, range(self.n_img),
-                                         self._make_packet):
+    def run(self, start_idx: int = 0, finalize: bool = True) -> None:
+        """The loop, then (by default) the final checkpoint.  Callers
+        that report the loop's metrics first (bench_torch.py) pass
+        ``finalize=False`` and call :meth:`finalize` themselves."""
+        self.run_loop(start_idx)
+        if finalize:
+            self.finalize()
+
+    def run_loop(self, start_idx: int = 0) -> None:
+        """Track and map every frame of the dataset from ``start_idx``."""
+        for idx, pkt in PacketPrefetcher(
+                self.dataset, range(start_idx, self.n_img),
+                self._make_packet):
+            t_frame = time.perf_counter()
+            self.frame_start_wall.append(t_frame)
             self.gt_poses[idx] = pkt.gt_c2w
             rec = {"frame": idx}
             self.frame_log.append(rec)
@@ -223,13 +254,51 @@ class SLAMSystem:
                 self._map_frame(idx, pkt, rec)
                 if self.on_map_done is not None:
                     self.on_map_done(self, idx)
+            if idx == self.sync_after_frame:
+                self._flush_track_buf()
+                self._sync()
+            self.frame_times.append(time.perf_counter() - t_frame)
         self._flush_track_buf()
         self._sync()
+        self.drain_wall = time.perf_counter()
         # Device scalars of the log become floats once, after the loop.
         for rec in self.frame_log:
             for k, v in rec.items():
                 if isinstance(v, torch.Tensor):
                     rec[k] = float(v)
+
+    def resume(self, ckpt_path: str | None = None) -> int:
+        """Restore the given checkpoint, or the newest one under
+        ``<output>/ckpts``; returns the frame to start from (0 if there
+        is none)."""
+        path = ckpt_path or latest_checkpoint(
+            os.path.join(self.output, "ckpts"))
+        return 0 if path is None else load_checkpoint(path, self)
+
+    def finalize(self, mesh: bool = False,
+                 checkpoint: bool = True) -> str | None:
+        """Post-loop outputs: the final checkpoint,
+        ``<output>/ckpts/<n-1:05d>.npz``; returns its path."""
+        if mesh:
+            raise NotImplementedError(
+                "meshing is not ported yet (ROADMAP A11)")
+        if not checkpoint or self.n_img == 0:
+            return None
+        return save_checkpoint(
+            os.path.join(self.output, "ckpts", f"{self.n_img - 1:05d}.npz"),
+            self, self.n_img - 1)
+
+    @property
+    def fps(self) -> float:
+        total = sum(self.frame_times)
+        return len(self.frame_times) / total if total > 0 else 0.0
+
+    @property
+    def compile_secs(self) -> float:
+        """Seconds spent building kernels since this system was made (0
+        when the library was already built, or built earlier in the
+        process)."""
+        return cuda_sample.BUILD_SECONDS - self._build_seconds_at_start
 
     @property
     def estimates(self) -> np.ndarray:

@@ -48,21 +48,25 @@ def from_jax_numpy(tree, device="cpu") -> MapState:
                                                    device))
 
 
-def to_jax_numpy(ms: MapState) -> dict:
-    """The port's MapState as the JAX layout, numpy leaves."""
+def decoder_to_jax_numpy(dec: Decoders) -> dict:
+    """A Decoders module as the JAX decoder dict, numpy leaves."""
     def wb(lin):
         return [lin.weight.detach().cpu().numpy().T.copy(),
                 lin.bias.detach().cpu().numpy().copy()]
 
-    dec = ms.decoder
+    return {
+        "sdf": [wb(lin) for lin in dec.sdf],
+        "rgb": [wb(lin) for lin in dec.rgb],
+        "sdf_out": wb(dec.sdf_out),
+        "rgb_out": wb(dec.rgb_out),
+        "beta": dec.beta.detach().cpu().numpy(),
+    }
+
+
+def to_jax_numpy(ms: MapState) -> dict:
+    """The port's MapState as the JAX layout, numpy leaves."""
     return {
         "sdf_atlas": ms.sdf_atlas.detach().cpu().numpy(),
         "color_atlas": ms.color_atlas.detach().cpu().numpy(),
-        "decoder": {
-            "sdf": [wb(lin) for lin in dec.sdf],
-            "rgb": [wb(lin) for lin in dec.rgb],
-            "sdf_out": wb(dec.sdf_out),
-            "rgb_out": wb(dec.rgb_out),
-            "beta": dec.beta.detach().cpu().numpy(),
-        },
+        "decoder": decoder_to_jax_numpy(ms.decoder),
     }

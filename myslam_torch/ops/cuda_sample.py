@@ -1,13 +1,15 @@
-"""Tri-plane sample kernels K1 (forward) and K2 (backward) and their
-plain PyTorch versions.
+"""Tri-plane sample kernels K1 (forward) and K2 (backward), their plain
+PyTorch versions, and the build of every kernel of the port.
 
-The kernels live in ``myslam_torch/csrc/plane_sample.cu``: CUDA C++ for
-``sm_90a`` with a plain C interface, compiled with nvcc at first use
-into ``build/kernels/`` (keyed by a hash of the source and flags) and
-bound with ctypes.  They are the Hopper counterparts of
-``myslam_tpu/ops/pallas_sample.py`` (K1: the B1/B3 forward) and of the
-hand-written VJP ``myslam_tpu/ops/plane_sample.py::_sample_fused_bwd``
-(K2).
+The kernels live in ``myslam_torch/csrc/``: CUDA C++ for ``sm_90a`` with
+a plain C interface, compiled with nvcc at first use into one shared
+library in ``build/kernels/`` (keyed by a hash of every source, the
+shared headers and the flags; the sources are compiled in parallel,
+then linked) and bound with ctypes.  ``plane_sample.cu`` holds K1, the
+Hopper counterpart of ``myslam_tpu/ops/pallas_sample.py``'s B1/B3
+forward, and K2, that of the hand-written VJP
+``myslam_tpu/ops/plane_sample.py::_sample_fused_bwd``;
+``plane_sample_smem.cu`` holds K3 (``ops/smem_sample.py``).
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version below, a CUDA tensor launches the kernel or raises.
@@ -19,25 +21,32 @@ Every launch adds one to ``LAUNCHES[name]``; nothing else touches it.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 import torch
 
 from myslam_torch.models.planes import PlaneLayout
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "plane_sample.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
-LAUNCHES = {"plane_sample_fwd": 0, "plane_sample_bwd": 0}
+LAUNCHES = {"plane_sample_fwd": 0, "plane_sample_bwd": 0,
+            "plane_sample_fwd_smem": 0}
 
 _lib = None
 BUILD_LOG = ""
+# Seconds this process spent compiling kernels (0 when the library was
+# already built).
+BUILD_SECONDS = 0.0
 
 
 def reset_launches() -> None:
@@ -150,31 +159,61 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"plane_sample_{digest.hexdigest()[:16]}.so")
+    """The kernels' library, named by a hash of every csrc source and
+    header and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"kernels_{digest.hexdigest()[:16]}.so")
 
 
 def build() -> str:
-    """Compile the kernels if this source has no library yet; returns
-    the library's path.  nvcc's register/spill report lands in
-    BUILD_LOG."""
-    global BUILD_LOG
+    """Compile the kernels' library unless it exists, and return its
+    path: one ``nvcc -c`` per csrc/*.cu, all started together, then one
+    link.  nvcc's register/spill report lands in BUILD_LOG, the wall
+    time in BUILD_SECONDS."""
+    global BUILD_LOG, BUILD_SECONDS
     path = library_path()
     if os.path.exists(path):
         return path
+    t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True, timeout=600)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
+    objs = []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, _, proc in objs:
+        log, _ = proc.communicate(timeout=600)
+        BUILD_LOG += f"== {os.path.basename(src)}\n{log}"
+        if proc.returncode:
+            failed.append(os.path.basename(src))
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", tmp,
+             *(obj for _, obj, _ in objs)],
+            capture_output=True, text=True, timeout=600)
+        BUILD_LOG += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode:
+            failed.append("link")
+    for _, obj, _ in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    BUILD_SECONDS += time.perf_counter() - t0
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{BUILD_LOG}")
     os.replace(tmp, path)
     return path
 
 
-def _load():
+def load():
+    """The kernels' ctypes library, built on first use."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
@@ -184,6 +223,9 @@ def _load():
         lib.plane_sample_bwd.argtypes = [vp, vp, vp, ci, vp, vp, ci, ci, ci,
                                          vp, vp]
         lib.plane_sample_bwd.restype = ci
+        lib.plane_sample_fwd_smem.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp,
+                                              ci, ci, ci, vp, vp]
+        lib.plane_sample_fwd_smem.restype = ci
         _lib = lib
     return _lib
 
@@ -245,7 +287,7 @@ def plane_sample_fwd(quad: torch.Tensor, layout: PlaneLayout,
                       device=p_nor.device)
     if n == 0:
         return out
-    lib = _load()
+    lib = load()
     err = lib.plane_sample_fwd(
         p_nor.data_ptr(), quad.data_ptr(), int(quad.dtype == torch.bfloat16),
         out.data_ptr(), n, C4, layout.n_levels,
@@ -276,7 +318,7 @@ def plane_sample_bwd(gbar: torch.Tensor, quad: torch.Tensor,
     p_grad = torch.empty((n, 3), dtype=torch.float32, device=p_nor.device)
     if n == 0:
         return quad_grad, p_grad
-    lib = _load()
+    lib = load()
     err = lib.plane_sample_bwd(
         gbar.data_ptr(), p_nor.data_ptr(), quad.data_ptr(),
         int(quad.dtype == torch.bfloat16),

@@ -3,9 +3,9 @@
   * ``run_torch.py --device cpu`` completes a tiny synthetic run and
     reports a finite ATE;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
-  * no module of ``myslam_torch/``, nor ``chip_smoke.py`` or
-    ``run_torch.py``, imports JAX or the JAX package (checked on the
-    sources' import statements).
+  * no module of ``myslam_torch/``, nor ``chip_smoke.py``,
+    ``run_torch.py`` or ``bench_torch.py``, imports JAX or the JAX
+    package (checked on the sources' import statements).
 """
 
 import ast
@@ -23,8 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "myslam_tpu")
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "run_torch.py")]
+    paths = [os.path.join(REPO, name) for name in
+             ("chip_smoke.py", "run_torch.py", "bench_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "myslam_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)

@@ -360,7 +360,7 @@ def test_slice_map_frame0_then_track_frame1_matches_jax():
         torch.tensor(pkt0.gt_c2w), 0, replay, iters=iters,
         lr_factor=lr_factor, joint_opt=False, admit=True)
     assert len(replay) == 0
-    store.note_admitted(pkt0.has_depthless)
+    store.note_admitted(pkt0.has_depthless, 0)
 
     np.testing.assert_allclose(N(losses), np.asarray(jlosses), rtol=1e-4)
     assert_map_close(pair.ms, jms, atol=1e-4, sdf_atol=5e-4)
