@@ -11,7 +11,11 @@ Phases, one JSON line each:
                      against their plain PyTorch versions at the SLAM
                      loop's shapes (mapping: 160,000 SDF and 48,000 color
                      points, f32 and bf16 quads; the exact lane's 160,000
-                     color points, f32), and K3 (the forward with
+                     color points, f32), on uniform points and, for K2,
+                     also on the loop's own ray-ordered points (with
+                     tracking's 80,000 frozen-quad points) with the
+                     host-counted row updates before and after merging
+                     runs, and K3 (the forward with
                      the coarse level in shared memory) against its plain
                      version and K1 at the SDF shape (bf16: one block;
                      f32: a 2-block cluster), with their times, the plain
@@ -42,6 +46,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,13 +62,18 @@ F32_FLOPS = 67e12
 # and K2.  K3 is not on that path (bench_scatter drives it).
 SAMPLES_PER_ITER = 2
 SLAM_KERNELS = ("plane_sample_fwd", "plane_sample_bwd")
-# The samples the kernels phase checks, (layout, points, quad dtypes):
-# the mapping samples of the top-K lane (SDF at all 40 samples of 4,000
-# rays, color at the top 12) and the exact lane's color sample at all 40
-# (f32 quad: map_bf16 is off there).
-KERNEL_CASES = (("sdf", 160_000, ("float32", "bfloat16")),
-                ("color", 48_000, ("float32", "bfloat16")),
-                ("color", 160_000, ("float32",)))
+# The samples the kernels phase checks, (layout, rays, samples kept per
+# ray (0: all 40), quad dtypes): the mapping samples of the top-K lane
+# (SDF at all 40 samples of 4,000 rays, 160,000 points; color at the
+# top 12, 48,000) and the exact lane's color sample at all 40 (f32 quad:
+# map_bf16 is off there).  Each on uniform points and on the loop's own
+# ray-ordered points of frame 0 (tools/bench_sample_bwd.loop_points).
+KERNEL_CASES = (("sdf", 4000, 0, ("float32", "bfloat16")),
+                ("color", 4000, 12, ("float32", "bfloat16")),
+                ("color", 4000, 0, ("float32",)))
+# Tracking's SDF sample (2,000 rays, 80,000 points, frozen bf16 quad):
+# K2 without the quad gradient, on the loop's points.
+TRACK_CASE = ("sdf", 2000, 0, ("bfloat16",))
 # bench_scatter at room0 scale: points and timed repetitions.
 BENCH_POINTS = 160_000
 BENCH_ITERS = 10
@@ -96,16 +106,6 @@ def scaled_err(got, ref) -> tuple[float, float]:
     return err, err / max(float(ref.float().abs().max()), 1e-30)
 
 
-def main_scene(cfg):
-    from myslam_torch.models.planes import compute_bound, make_layout
-
-    bound = compute_bound(cfg)
-    c = int(cfg["model"]["c_dim"])
-    p, q = cfg["planes_res"], cfg["c_planes_res"]
-    return {"sdf": make_layout(bound, [p["coarse"], p["fine"]], c),
-            "color": make_layout(bound, [q["coarse"], q["fine"]], c)}
-
-
 def grid_sample_features(planes, layout, p_nor):
     """The library yardstick: the reduced features (N, L*C) by six
     F.grid_sample calls (bilinear, border, align_corners=True) and the
@@ -127,6 +127,20 @@ def grid_sample_features(planes, layout, p_nor):
     return torch.cat(feats, dim=-1)
 
 
+def spills(build_log: str) -> dict:
+    """Kernels whose ptxas report (-Xptxas -v) shows spill stores or
+    loads: {mangled name: report line}."""
+    out, fn = {}, None
+    for ln in build_log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif "spill" in ln and fn is not None:
+            if any(int(w) for w in re.findall(r"(\d+) bytes spill", ln)):
+                out[fn] = ln.strip()
+            fn = None
+    return out
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     """The least time for the work on the card, and what sets it."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -134,109 +148,166 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def check_kernels(layouts) -> list[dict]:
+def bwd_bound(n: int, layout, elt: int, rows: dict,
+              quad_grad: bool) -> tuple[float, str, int]:
+    """K2's bound on these points: gbar, the coordinates and p_grad once,
+    the touched quad rows once, and with the quad gradient its touched
+    rows written once; 7 (5 without the quad gradient) f32 operations per
+    (point, plane, lane)."""
+    C4, L = 4 * layout.c_dim, layout.n_levels
+    nbytes = n * L * C4 * 4 + 2 * n * 3 * 4 + rows["rows_touched"] * C4 * (
+        elt + (4 if quad_grad else 0))
+    ms, by = bound_ms(nbytes, (7 if quad_grad else 5) * n * 3 * L * C4)
+    return ms, by, nbytes
+
+
+def check_bwd(gbar, quad, layout, p_nor, rows, planes) -> dict:
+    """K2, with and without the quad gradient, against its plain version
+    on these points; its times, the plain version's, the library's
+    (grid_sample's backward, and with the planes frozen) and the bounds."""
+    import torch
+
+    from myslam_torch.ops import cuda_sample
+
+    qg, pg = cuda_sample.plane_sample_bwd(gbar, quad, layout, p_nor)
+    _, pg_only = cuda_sample.plane_sample_bwd(gbar, quad, layout, p_nor,
+                                              need_quad_grad=False)
+    rqg, rpg = cuda_sample.plane_sample_bwd_ref(gbar, quad, layout, p_nor)
+    torch.cuda.synchronize()
+    q_err, q_rel = scaled_err(qg, rqg)
+    p_err, p_rel = scaled_err(pg, rpg)
+    po_err, po_rel = scaled_err(pg_only, rpg)
+    # Tolerance: the same float32 products summed in another order (FMA
+    # contraction; runs merged in registers, then vector atomics, against
+    # index_add_; a warp butterfly against torch.sum): 1e-5 of the
+    # largest value.
+    for what, rel in (("quad_grad", q_rel), ("p_grad", p_rel),
+                      ("p_grad without quad_grad", po_rel)):
+        if not rel <= 1e-5:
+            raise AssertionError(
+                f"K2 {layout.total_rows} rows {quad.dtype} {what}: error "
+                f"{rel:.3e} of the largest value exceeds 1e-5")
+    # Points outside the bound on every axis get no coordinate gradient
+    # from the clamped planes.
+    out_all = (p_nor.abs() > 1.0).all(dim=1)
+    for got in (pg, pg_only):
+        if bool(out_all.any()) and float(got[out_all].abs().max()) != 0:
+            raise AssertionError("K2: p_grad outside the border")
+
+    grid_in = p_nor.clone().requires_grad_()
+    lib_out = grid_sample_features(planes, layout, grid_in)
+    lib_gbar = torch.randn_like(lib_out)
+    grid_fz = p_nor.clone().requires_grad_()
+    lib_out_fz = grid_sample_features([q.detach() for q in planes], layout,
+                                      grid_fz)
+    n, elt = p_nor.shape[0], quad.element_size()
+    bb, bby, nbytes = bwd_bound(n, layout, elt, rows, True)
+    pb, pby, p_bytes = bwd_bound(n, layout, elt, rows, False)
+    return {
+        "max_abs_err": max(q_err, p_err, po_err), "quad_grad_err": q_err,
+        "p_grad_err": p_err, "p_grad_only_err": po_err,
+        "ms": time_ms(lambda: cuda_sample.plane_sample_bwd(
+            gbar, quad, layout, p_nor)),
+        "ms_p_grad_only": time_ms(lambda: cuda_sample.plane_sample_bwd(
+            gbar, quad, layout, p_nor, need_quad_grad=False)),
+        "plain_ms": time_ms(lambda: cuda_sample.plane_sample_bwd_ref(
+            gbar, quad, layout, p_nor), reps=5),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_out, planes + [grid_in], lib_gbar, retain_graph=True),
+            reps=5),
+        "bytes": nbytes, "bound_ms": bb, "bound_by": bby,
+        "rows_touched": rows["rows_touched"],
+        "p_grad_only": {
+            "plain_ms": time_ms(lambda: cuda_sample.plane_sample_bwd_ref(
+                gbar, quad, layout, p_nor, need_quad_grad=False), reps=5),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                lib_out_fz, [grid_fz], lib_gbar, retain_graph=True),
+                reps=5),
+            "bytes": p_bytes, "bound_ms": pb, "bound_by": pby},
+    }
+
+
+def check_kernels(cfg, layouts) -> list[dict]:
     """K1 and K2 (with and without the quad gradient) against their plain
     versions, and K3 against its plain version and K1 on the SDF layout;
-    returns one record per (layout, points, dtype) case."""
+    K2 also on the loop's own ray-ordered points, and on tracking's.
+    Returns one record per (layout, points, dtype) case."""
     import torch
 
     from myslam_torch.ops import cuda_sample
     from myslam_torch.ops.plane_sample import pack_quad
+    from myslam_torch.tools.bench_sample_bwd import loop_points, \
+        row_updates, uniform_points
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cases = []
-    for name, n, dtypes in KERNEL_CASES:
+    for name, n_rays, keep, dtypes in KERNEL_CASES + (TRACK_CASE,):
         layout = layouts[name]
         C, L = layout.c_dim, layout.n_levels
+        track = (name, n_rays, keep, dtypes) == TRACK_CASE
+        rays = loop_points(cfg, n_rays, dev, SEED, keep)
+        n = rays.shape[0]
         atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
                                    device=dev)
         # Past [-1, 1] on purpose: the border clamp and its zero
         # coordinate gradient are part of what is checked.
-        p_nor = (torch.rand((n, 3), generator=gen, device=dev) * 2.1
-                 - 1.05).contiguous()
+        p_nor = uniform_points(n, gen, dev)
         gbar = torch.randn((n, L * 4 * C), generator=gen, device=dev)
+        gbar_rays = torch.randn((n, L * 4 * C), generator=gen, device=dev)
         planes = [atlas[off:off + H * W].reshape(H, W, C).permute(2, 0, 1)
                   [None].contiguous().requires_grad_()
                   for _, _, _, _, H, W, off in layout.planes()]
-        grid_in = p_nor.clone().requires_grad_()
-        lib_out = grid_sample_features(planes, layout, grid_in)
-        lib_gbar = torch.randn_like(lib_out)
-        for dtype in (getattr(torch, d) for d in dtypes):
-            quad = pack_quad(atlas, layout).to(dtype).contiguous()
-            out = cuda_sample.plane_sample_fwd(quad, layout, p_nor)
-            ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p_nor)
-            qg, pg = cuda_sample.plane_sample_bwd(gbar, quad, layout, p_nor)
-            _, pg_only = cuda_sample.plane_sample_bwd(
-                gbar, quad, layout, p_nor, need_quad_grad=False)
-            rqg, rpg = cuda_sample.plane_sample_bwd_ref(gbar, quad, layout,
-                                                        p_nor)
-            torch.cuda.synchronize()
-            f_err, f_rel = scaled_err(out, ref)
-            q_err, q_rel = scaled_err(qg, rqg)
-            p_err, p_rel = scaled_err(pg, rpg)
-            po_err, po_rel = scaled_err(pg_only, rpg)
-            # Tolerance: the same float32 products summed in another order
-            # (FMA contraction; atomics against index_add_; a warp
-            # reduction against torch.sum): 1e-5 of the largest value.
-            for what, rel in (("forward", f_rel), ("quad_grad", q_rel),
-                              ("p_grad", p_rel),
-                              ("p_grad without quad_grad", po_rel)):
-                if not rel <= 1e-5:
-                    raise AssertionError(
-                        f"{name} {dtype} {what}: error {rel:.3e} of the "
-                        f"largest value exceeds 1e-5")
-            # Points outside the bound on every axis get no coordinate
-            # gradient from the clamped planes.
-            out_all = (p_nor.abs() > 1.0).all(dim=1)
-            if bool(out_all.any()) and float(pg[out_all].abs().max()) != 0:
-                raise AssertionError(f"{name}: p_grad outside the border")
-
-            elt = quad.element_size()
-            q_bytes = layout.total_rows * 4 * C * elt
-            io = n * 3 * 4
-            feat = n * L * 4 * C * 4
-            fwd_bytes = io + q_bytes + feat
-            bwd_bytes = feat + io + q_bytes + layout.total_rows * 4 * C * 4 \
-                + n * 3 * 4
-            lanes = n * 3 * L * 4 * C  # (point, plane, lane)
-            fwd_ops, bwd_ops = 2 * lanes, 7 * lanes
-            # K2 with the quad gradient; the frozen-quad variant too.
-            ms_fwd = time_ms(lambda: cuda_sample.plane_sample_fwd(
-                quad, layout, p_nor))
-            ms_bwd = time_ms(lambda: cuda_sample.plane_sample_bwd(
-                gbar, quad, layout, p_nor))
-            ms_bwd_p = time_ms(lambda: cuda_sample.plane_sample_bwd(
-                gbar, quad, layout, p_nor, need_quad_grad=False))
-            plain_fwd = time_ms(lambda: cuda_sample.plane_sample_fwd_ref(
-                quad, layout, p_nor), reps=5)
-            plain_bwd = time_ms(lambda: cuda_sample.plane_sample_bwd_ref(
-                gbar, quad, layout, p_nor), reps=5)
+        rows = {order: row_updates(layout, pts, cuda_sample.BWD_RUN)
+                for order, pts in (("uniform", p_nor), ("rays", rays))}
+        emit({"phase": "kernels_rows", "layout": name, "points": n,
+              "run": cuda_sample.BWD_RUN, **rows})
+        if not track:
+            grid_in = p_nor.clone().requires_grad_()
             lib_fwd = time_ms(lambda: grid_sample_features(
                 planes, layout, grid_in), reps=5)
-            lib_bwd = time_ms(lambda: torch.autograd.grad(
-                lib_out, planes + [grid_in], lib_gbar, retain_graph=True),
-                reps=5)
-            fb, fby = bound_ms(fwd_bytes, fwd_ops)
-            bb, bby = bound_ms(bwd_bytes, bwd_ops)
-            cases.append({
-                "layout": name, "rows": layout.total_rows, "points": n,
-                "quad_dtype": str(dtype).replace("torch.", ""),
-                "fwd": {"max_abs_err": f_err, "ms": ms_fwd,
-                        "plain_ms": plain_fwd, "library_ms": lib_fwd,
-                        "bytes": fwd_bytes, "bound_ms": fb, "bound_by": fby},
-                "bwd": {"max_abs_err": max(q_err, p_err, po_err),
-                        "quad_grad_err": q_err, "p_grad_err": p_err,
-                        "p_grad_only_err": po_err,
-                        "ms": ms_bwd, "ms_p_grad_only": ms_bwd_p,
-                        "plain_ms": plain_bwd, "library_ms": lib_bwd,
-                        "bytes": bwd_bytes, "bound_ms": bb, "bound_by": bby},
-            })
+        for dtype in (getattr(torch, d) for d in dtypes):
+            quad = pack_quad(atlas, layout).to(dtype).contiguous()
+            rec = {"layout": name, "rows": layout.total_rows, "points": n,
+                   "quad_dtype": str(dtype).replace("torch.", "")}
+            if track:
+                # Tracking's sample: frozen quads, K2 without the quad
+                # gradient (its record's p_grad_only).
+                rec["case"] = "tracking"
+                rec["bwd_rays"] = check_bwd(gbar_rays, quad, layout, rays,
+                                            rows["rays"], planes)
+                cases.append(rec)
+                emit({"phase": "kernels", **rec})
+                continue
+            out = cuda_sample.plane_sample_fwd(quad, layout, p_nor)
+            ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p_nor)
+            torch.cuda.synchronize()
+            f_err, f_rel = scaled_err(out, ref)
+            # Tolerance: the same float32 products, FMA-contracted: 1e-5
+            # of the largest value.
+            if not f_rel <= 1e-5:
+                raise AssertionError(
+                    f"{name} {dtype} forward: error {f_rel:.3e} of the "
+                    f"largest value exceeds 1e-5")
+            fwd_bytes = (n * 3 * 4 + layout.total_rows * 4 * C
+                         * quad.element_size() + n * L * 4 * C * 4)
+            fb, fby = bound_ms(fwd_bytes, 2 * n * 3 * L * 4 * C)
+            plain_fwd = time_ms(lambda: cuda_sample.plane_sample_fwd_ref(
+                quad, layout, p_nor), reps=5)
+            rec["fwd"] = {"max_abs_err": f_err, "ms": time_ms(
+                lambda: cuda_sample.plane_sample_fwd(quad, layout, p_nor)),
+                "plain_ms": plain_fwd, "library_ms": lib_fwd,
+                "bytes": fwd_bytes, "bound_ms": fb, "bound_by": fby}
+            rec["bwd"] = check_bwd(gbar, quad, layout, p_nor,
+                                   rows["uniform"], planes)
+            rec["bwd_rays"] = check_bwd(gbar_rays, quad, layout, rays,
+                                        rows["rays"], planes)
+            cases.append(rec)
             if name == "sdf":
-                cases[-1]["smem"] = check_smem(
+                rec["smem"] = check_smem(
                     quad, layout, p_nor, ref, out, plain_fwd, lib_fwd,
                     fwd_bytes, fb, fby)
-            emit({"phase": "kernels", **cases[-1]})
+            emit({"phase": "kernels", **rec})
     return cases
 
 
@@ -270,13 +341,31 @@ def check_smem(quad, layout, p_nor, ref, k1_out, plain_ms, lib_ms, nbytes,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def sample_calls(slam) -> list[dict]:
+    """The samples a finished run made, each launching K1 and K2 once:
+    per mapping iteration an SDF and a color sample whose backward makes
+    the quad gradient, per tracking iteration both on frozen quads."""
+    cfg, scene = slam.cfg, slam.scene
+    t_iters = int(cfg["tracking"]["iters"])
+    tracked = t_iters * sum("track_ms" in r for r in slam.frame_log)
+    mapped = sum(r.get("map_iters", 0) for r in slam.frame_log)
+    k = scene.color_topk if 0 < scene.color_topk < scene.n_samples \
+        else scene.n_samples
+    calls = []
+    for step, launches, quad_grad in (("mapping", mapped, True),
+                                      ("tracking", tracked, False)):
+        rays = int(cfg[step]["pixels"])
+        for layout, per_ray in (("sdf", scene.n_samples), ("color", k)):
+            calls.append({"step": step, "layout": layout,
+                          "points": rays * per_ray, "quad_grad": quad_grad,
+                          "launches": launches})
+    return calls
+
+
 def expected_launches(slam) -> int:
     """K1 (and K2) launches a finished run must have made: one SDF and
     one color sample per tracking and per mapping iteration."""
-    t_iters = int(slam.cfg["tracking"]["iters"])
-    tracked = sum("track_ms" in r for r in slam.frame_log)
-    mapped = sum(r.get("map_iters", 0) for r in slam.frame_log)
-    return SAMPLES_PER_ITER * (t_iters * tracked + mapped)
+    return sum(c["launches"] for c in sample_calls(slam))
 
 
 def check_launches(launches: dict, expected: int) -> None:
@@ -357,7 +446,7 @@ def run_slam(cfg) -> dict:
             [r["map_ms"] for r in mapped if r["frame"] > 0])),
         "map_ms_frame0": mapped[0]["map_ms"],
         "wall_s": wall, "ate_rmse_cm": ate_cm, "launches": launches,
-        "expected_launches": expected,
+        "expected_launches": expected, "calls": sample_calls(slam),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit(out)
@@ -461,6 +550,7 @@ def main() -> int:
         return 2
     try:
         from myslam_torch.ops import cuda_sample
+        from myslam_torch.tools.bench_sample_bwd import layouts
         from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -470,13 +560,17 @@ def main() -> int:
     t0 = time.perf_counter()
     library = cuda_sample.build()
     ptxas = [ln.strip() for ln in cuda_sample.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling" in ln
+             or "Function properties" in ln]
+    spilled = spills(cuda_sample.BUILD_LOG)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": library, "ptxas": ptxas})
+          "library": library, "ptxas": ptxas, "spills": spilled})
+    if any("plane_sample_bwd" in fn for fn in spilled):
+        raise AssertionError(f"K2 spills registers: {spilled}")
 
     cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
-    cases = check_kernels(main_scene(cfg))
+    cases = check_kernels(cfg, layouts(cfg))
     slam = run_slam(cfg)
     bench = run_bench_scatter()
     run_bench_exact()
@@ -491,8 +585,11 @@ def main() -> int:
     # mapping SDF sample (160,000 points) on bf16 quads (map_bf16 in
     # configs/Synthetic/room.yaml and in tracking).  K1/K2 launches are the
     # SLAM loop's, K3's the bench_scatter phase's.
-    head = next(c for c in cases
-                if c["layout"] == "sdf" and c["quad_dtype"] == "bfloat16")
+    head = next(c for c in cases if c["layout"] == "sdf"
+                and c["quad_dtype"] == "bfloat16" and "fwd" in c)
+    # The records each kernel was checked in (K2: both point orders).
+    checked = {"fwd": ("fwd",), "bwd": ("bwd", "bwd_rays"),
+               "smem": ("smem",)}
     kernels = []
     for name, key, source, replaces, launches in (
             ("plane_sample_fwd", "fwd", "plane_sample.cu",
@@ -509,11 +606,13 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"myslam_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max(c[key]["max_abs_err"] for c in cases
-                               if key in c),
+            "max_abs_err": max(c[k]["max_abs_err"] for c in cases
+                               for k in checked[key] if k in c),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+    # K2 on the loop's own ray-ordered points at the same sample.
+    kernels[1]["ms_rays"] = head["bwd_rays"]["ms"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

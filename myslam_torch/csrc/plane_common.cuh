@@ -25,14 +25,15 @@ struct PlaneCoord {
 };
 
 // Same float operations, in the same order, as plane_coords in
-// ops/cuda_sample.py and _plane_coords in the JAX package.
-__device__ __forceinline__ PlaneCoord plane_coord(const float p[3],
-                                                  const PlaneTable& t,
-                                                  int k) {
+// ops/cuda_sample.py and _plane_coords in the JAX package; u and v are the
+// point's coordinates on plane k's axes.
+__device__ __forceinline__ PlaneCoord plane_coord_uv(float u, float v,
+                                                     const PlaneTable& t,
+                                                     int k) {
   const float Wm1 = (float)t.W[k] - 1.0f;
   const float Hm1 = (float)t.H[k] - 1.0f;
-  const float xr = (p[t.au[k]] + 1.0f) * 0.5f * Wm1;
-  const float yr = (p[t.av[k]] + 1.0f) * 0.5f * Hm1;
+  const float xr = (u + 1.0f) * 0.5f * Wm1;
+  const float yr = (v + 1.0f) * 0.5f * Hm1;
   const float x = fminf(fmaxf(xr, 0.0f), Wm1);
   const float y = fminf(fmaxf(yr, 0.0f), Hm1);
   const float x0 = floorf(x);
@@ -46,6 +47,12 @@ __device__ __forceinline__ PlaneCoord plane_coord(const float p[3],
   c.half_w = 0.5f * Wm1;
   c.half_h = 0.5f * Hm1;
   return c;
+}
+
+__device__ __forceinline__ PlaneCoord plane_coord(const float p[3],
+                                                  const PlaneTable& t,
+                                                  int k) {
+  return plane_coord_uv(p[t.au[k]], p[t.av[k]], t, k);
 }
 
 // 4 consecutive channels from device memory, read-only path.

@@ -42,6 +42,13 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 LAUNCHES = {"plane_sample_fwd": 0, "plane_sample_bwd": 0,
             "plane_sample_fwd_smem": 0}
 
+# K2's launch: each warp walks BWD_RUN consecutive points, merging the
+# quad-gradient updates of points that share a row (chosen on the card
+# among 8, 16 and 40 points, PERF.md); BWD_WARPS is the kernel's
+# compile-time block (plane_sample.cu).
+BWD_RUN = 16
+BWD_WARPS = 8
+
 _lib = None
 BUILD_LOG = ""
 # Seconds this process spent compiling kernels (0 when the library was
@@ -221,7 +228,7 @@ def load():
         lib.plane_sample_fwd.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, vp]
         lib.plane_sample_fwd.restype = ci
         lib.plane_sample_bwd.argtypes = [vp, vp, vp, ci, vp, vp, ci, ci, ci,
-                                         vp, vp]
+                                         vp, ci, ci, ci, vp]
         lib.plane_sample_bwd.restype = ci
         lib.plane_sample_fwd_smem.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp,
                                               ci, ci, ci, vp, vp]
@@ -274,6 +281,14 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def bwd_launch_plan(n: int) -> tuple[int, int, int]:
+    """K2's launch for n > 0 points: (points per warp, warps per block,
+    blocks).  Warp w of the grid walks points [w*run, min((w+1)*run, n)),
+    so the plan covers every point once and leaves no block empty."""
+    warps = -(-n // BWD_RUN)
+    return BWD_RUN, BWD_WARPS, -(-warps // BWD_WARPS)
+
+
 def plane_sample_fwd(quad: torch.Tensor, layout: PlaneLayout,
                      p_nor: torch.Tensor) -> torch.Tensor:
     """Tri-plane sample forward, (N, L*4C) float32.  CPU tensors: the
@@ -303,7 +318,8 @@ def plane_sample_bwd(gbar: torch.Tensor, quad: torch.Tensor,
                      need_quad_grad: bool = True):
     """Tri-plane sample backward: (quad_grad (S, 4C) f32 or None, p_grad
     (N, 3) f32).  CPU tensors: the plain version; CUDA tensors: kernel
-    K2 (the quad gradient by f32 atomics, only when asked for)."""
+    K2 (the quad gradient, only when asked for, by vector atomics of
+    runs merged in registers; ``bwd_launch_plan``)."""
     if p_nor.device.type == "cpu" and quad.device.type == "cpu":
         return plane_sample_bwd_ref(gbar, quad, layout, p_nor,
                                     need_quad_grad)
@@ -319,13 +335,14 @@ def plane_sample_bwd(gbar: torch.Tensor, quad: torch.Tensor,
     if n == 0:
         return quad_grad, p_grad
     lib = load()
+    run, warps, blocks = bwd_launch_plan(n)
     err = lib.plane_sample_bwd(
         gbar.data_ptr(), p_nor.data_ptr(), quad.data_ptr(),
         int(quad.dtype == torch.bfloat16),
         quad_grad.data_ptr() if need_quad_grad else None,
         p_grad.data_ptr(), n, C4, layout.n_levels,
-        ctypes.cast(_plane_table(layout), ctypes.c_void_p),
-        torch.cuda.current_stream(p_nor.device).cuda_stream)
+        ctypes.cast(_plane_table(layout), ctypes.c_void_p), run, warps,
+        blocks, torch.cuda.current_stream(p_nor.device).cuda_stream)
     _raise_on(err, "plane_sample_bwd")
     LAUNCHES["plane_sample_bwd"] += 1
     return quad_grad, p_grad

@@ -1,13 +1,14 @@
 #!/usr/bin/env python
 """Where one steady group of the SLAM loop spends its time on the GPU.
 
-    python -m myslam_torch.tools.profile_steps [--config PATH]
+    python -m myslam_torch.tools.profile_steps [--config PATH] [--exact]
 
 Runs ``SLAMSystem`` for 13 frames and traces, with
 ``torch.profiler``, the last every_frame group: its tracked frames and
 the mapped frame that closes it.  Prints one JSON line with the window's
 wall time, the device's busy time (kernels and copies) and idle share,
-the kernel count, and the operators that hold the most device time.
+the kernel count, and the operators, kernels and kernel families (a
+template's instantiations summed) that hold the most device time.
 The profiler adds host time to every operator, so the traced window's
 wall and idle share are upper bounds; the untraced per-frame times of
 the same run are printed beside them (``frame_log``).
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 N_FRAMES = 13  # frame 0, then three groups of four
@@ -26,6 +28,9 @@ TOP = 15
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="configs/Synthetic/room.yaml")
+    p.add_argument("--exact", action="store_true",
+                   help="the exact lane: every color sample, f32 map reads "
+                        "in mapping (bench_torch.py's lane rule)")
     args = p.parse_args(argv)
 
     import torch
@@ -37,6 +42,9 @@ def main(argv=None) -> dict:
 
     cfg = load_config(args.config, DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
+    if args.exact:
+        cfg["rendering"]["color_topk"] = 0
+        cfg["mapping"]["map_bf16"] = False
     slam = SLAMSystem(cfg, device="cuda")
     every = slam.every_frame
     last = (N_FRAMES - 1) // every * every
@@ -70,6 +78,12 @@ def main(argv=None) -> dict:
         n, t = by_kernel.get(e.name, (0, 0.0))
         by_kernel[e.name] = (n + 1, t + e.device_time_total)
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+    by_family: dict = {}
+    for name, (n, t) in by_kernel.items():
+        family = re.split(r"[<(]", re.sub(r"^void ", "", name), 1)[0]
+        fn, ft = by_family.get(family, (0, 0.0))
+        by_family[family] = (fn + n, ft + t)
+    top_families = sorted(by_family.items(), key=lambda kv: -kv[1][1])
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
@@ -78,7 +92,7 @@ def main(argv=None) -> dict:
     untraced = [r for r in slam.frame_log
                 if last - 2 * every < r["frame"] <= last - every]
     out = {
-        "config": args.config, "frames": N_FRAMES,
+        "config": args.config, "exact": args.exact, "frames": N_FRAMES,
         "device": torch.cuda.get_device_name(0),
         "window_frames": [r["frame"] for r in group],
         "traced_wall_ms": window["wall_ms"],
@@ -97,6 +111,9 @@ def main(argv=None) -> dict:
                     for e in ops[:TOP]],
         "top_kernels": [{"name": name[:120], "count": n, "device_ms": t / 1e3}
                         for name, (n, t) in top_kernels[:TOP]],
+        "top_families": [{"name": name[:120], "count": n,
+                          "device_ms": t / 1e3, "share": t / busy_us}
+                         for name, (n, t) in top_families[:TOP]],
     }
     print(json.dumps(out))
     return out
