@@ -11,15 +11,18 @@ Phases, one JSON line each:
                      against their plain PyTorch versions at the SLAM
                      loop's shapes (mapping: 160,000 SDF and 48,000 color
                      points, f32 and bf16 quads; the exact lane's 160,000
-                     color points, f32), on uniform points and, for K2,
-                     also on the loop's own ray-ordered points (with
-                     tracking's 80,000 frozen-quad points) with the
-                     host-counted row updates before and after merging
-                     runs, and K3 (the forward with
+                     color points, f32), on uniform points and on the
+                     loop's own ray-ordered points (K2 also on tracking's
+                     80,000 frozen-quad points), with the host-counted
+                     row reads of K1 and row updates of K2 before and
+                     after the walk merges runs, and K3 (the forward with
                      the coarse level in shared memory) against its plain
-                     version and K1 at the SDF shape (bf16: one block;
-                     f32: a 2-block cluster), with their times, the plain
-                     versions' times, a library yardstick and the bound;
+                     version and K1 at the SDF shape on both point orders
+                     (bf16: one block; f32: a 2-block cluster), with their
+                     times (``ms``: CUDA events over calls made one after
+                     another; ``ms_graph``: over calls captured in a CUDA
+                     graph), the plain versions' times, a library
+                     yardstick and the bound;
   3. slam         -- the SLAM loop: SLAMSystem on configs/Synthetic/room.yaml
                      at full width for 13 frames (frame 0 mapped for 1000
                      iterations, 12 tracked frames, frames 4, 8 and 12
@@ -35,7 +38,11 @@ Phases, one JSON line each:
                      launches, and its final checkpoint loaded back into a
                      fresh SLAMSystem bit for bit.
 
-Then the card's name and power limit, the kernels line, and last
+The build fails the run if ptxas reports a register spill in K1, K2 or
+K3.  Then the card's name and power limit, the kernels line (K1's, K2's
+and K3's times at the mapping SDF sample on uniform points, and as
+``ms_rays`` on the loop's ray-ordered points, each also as
+``ms_graph`` / ``ms_rays_graph``), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -98,6 +105,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_times(fn) -> dict:
+    """Mean milliseconds of a kernel's wrapper two ways: ``ms`` by CUDA
+    events over calls made one after another (time_ms, the method of the
+    earlier runs; where the host enqueues a call more slowly than the card
+    runs it, it measures the host), and ``ms_graph`` over calls captured
+    in a CUDA graph (tools/bench_sample_fwd.graph_ms: no host time between
+    the kernels)."""
+    from myslam_torch.tools.bench_sample_fwd import graph_ms
+
+    return {"ms": time_ms(fn), "ms_graph": graph_ms(fn)}
 
 
 def scaled_err(got, ref) -> tuple[float, float]:
@@ -206,7 +225,7 @@ def check_bwd(gbar, quad, layout, p_nor, rows, planes) -> dict:
     return {
         "max_abs_err": max(q_err, p_err, po_err), "quad_grad_err": q_err,
         "p_grad_err": p_err, "p_grad_only_err": po_err,
-        "ms": time_ms(lambda: cuda_sample.plane_sample_bwd(
+        **kernel_times(lambda: cuda_sample.plane_sample_bwd(
             gbar, quad, layout, p_nor)),
         "ms_p_grad_only": time_ms(lambda: cuda_sample.plane_sample_bwd(
             gbar, quad, layout, p_nor, need_quad_grad=False)),
@@ -227,11 +246,51 @@ def check_bwd(gbar, quad, layout, p_nor, rows, planes) -> dict:
     }
 
 
+def check_fwd(quad, layout, p_nor, rows, planes) -> tuple:
+    """K1 against its plain version on these points; its time, the plain
+    version's, the library yardstick's and the bound, with the row reads
+    before and after the walk's reuse (``rows``: ``row_updates`` at K1's
+    run).  Also returns the output and the plain one, for K3."""
+    import torch
+
+    from myslam_torch.ops import cuda_sample
+
+    out = cuda_sample.plane_sample_fwd(quad, layout, p_nor)
+    ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p_nor)
+    torch.cuda.synchronize()
+    err, rel = scaled_err(out, ref)
+    # Tolerance: the same float32 products, FMA-contracted, summed over
+    # the three orientations in the plain version's order: 1e-5 of the
+    # largest value.
+    if not rel <= 1e-5:
+        raise AssertionError(
+            f"K1 {layout.total_rows} rows {quad.dtype} forward: error "
+            f"{rel:.3e} of the largest value exceeds 1e-5")
+    n, C4, L = p_nor.shape[0], 4 * layout.c_dim, layout.n_levels
+    # The points, the rows they touch and the f32 output, once each.
+    nbytes = (n * 3 * 4 + rows["rows_touched"] * C4 * quad.element_size()
+              + n * L * C4 * 4)
+    b_ms, b_by = bound_ms(nbytes, 2 * n * 3 * L * C4)
+    grid_in = p_nor.clone().requires_grad_()
+    return {"max_abs_err": err, **kernel_times(
+        lambda: cuda_sample.plane_sample_fwd(quad, layout, p_nor)),
+        "plain_ms": time_ms(lambda: cuda_sample.plane_sample_fwd_ref(
+            quad, layout, p_nor), reps=5),
+        # A yardstick, not the same function: grid_sample gives the
+        # reduced (N, L*C) features, a quarter of K1's output.
+        "library_ms": time_ms(lambda: grid_sample_features(
+            planes, layout, grid_in), reps=5),
+        "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        "row_reads": rows["updates"], "row_reads_after_reuse":
+        rows["merged"], "rows_touched": rows["rows_touched"]}, out, ref
+
+
 def check_kernels(cfg, layouts) -> list[dict]:
     """K1 and K2 (with and without the quad gradient) against their plain
-    versions, and K3 against its plain version and K1 on the SDF layout;
-    K2 also on the loop's own ray-ordered points, and on tracking's.
-    Returns one record per (layout, points, dtype) case."""
+    versions, and K3 against its plain version and K1 on the SDF layout,
+    each on uniform points and on the loop's own ray-ordered points; K2
+    also on tracking's.  Returns one record per (layout, points, dtype)
+    case."""
     import torch
 
     from myslam_torch.ops import cuda_sample
@@ -260,12 +319,11 @@ def check_kernels(cfg, layouts) -> list[dict]:
                   for _, _, _, _, H, W, off in layout.planes()]
         rows = {order: row_updates(layout, pts, cuda_sample.BWD_RUN)
                 for order, pts in (("uniform", p_nor), ("rays", rays))}
+        fwd_rows = {order: row_updates(layout, pts, cuda_sample.FWD_RUN)
+                    for order, pts in (("uniform", p_nor), ("rays", rays))}
         emit({"phase": "kernels_rows", "layout": name, "points": n,
-              "run": cuda_sample.BWD_RUN, **rows})
-        if not track:
-            grid_in = p_nor.clone().requires_grad_()
-            lib_fwd = time_ms(lambda: grid_sample_features(
-                planes, layout, grid_in), reps=5)
+              "run": cuda_sample.BWD_RUN, **rows,
+              "fwd_run": cuda_sample.FWD_RUN, "fwd": fwd_rows})
         for dtype in (getattr(torch, d) for d in dtypes):
             quad = pack_quad(atlas, layout).to(dtype).contiguous()
             rec = {"layout": name, "rows": layout.total_rows, "points": n,
@@ -279,42 +337,26 @@ def check_kernels(cfg, layouts) -> list[dict]:
                 cases.append(rec)
                 emit({"phase": "kernels", **rec})
                 continue
-            out = cuda_sample.plane_sample_fwd(quad, layout, p_nor)
-            ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p_nor)
-            torch.cuda.synchronize()
-            f_err, f_rel = scaled_err(out, ref)
-            # Tolerance: the same float32 products, FMA-contracted: 1e-5
-            # of the largest value.
-            if not f_rel <= 1e-5:
-                raise AssertionError(
-                    f"{name} {dtype} forward: error {f_rel:.3e} of the "
-                    f"largest value exceeds 1e-5")
-            fwd_bytes = (n * 3 * 4 + layout.total_rows * 4 * C
-                         * quad.element_size() + n * L * 4 * C * 4)
-            fb, fby = bound_ms(fwd_bytes, 2 * n * 3 * L * 4 * C)
-            plain_fwd = time_ms(lambda: cuda_sample.plane_sample_fwd_ref(
-                quad, layout, p_nor), reps=5)
-            rec["fwd"] = {"max_abs_err": f_err, "ms": time_ms(
-                lambda: cuda_sample.plane_sample_fwd(quad, layout, p_nor)),
-                "plain_ms": plain_fwd, "library_ms": lib_fwd,
-                "bytes": fwd_bytes, "bound_ms": fb, "bound_by": fby}
+            for key, pts in (("fwd", p_nor), ("fwd_rays", rays)):
+                rec[key], out, ref = check_fwd(
+                    quad, layout, pts, fwd_rows[key[4:] or "uniform"],
+                    planes)
+                if name == "sdf":
+                    rec["smem" + key[3:]] = check_smem(quad, layout, pts,
+                                                       ref, out, rec[key])
+            del out, ref
             rec["bwd"] = check_bwd(gbar, quad, layout, p_nor,
                                    rows["uniform"], planes)
             rec["bwd_rays"] = check_bwd(gbar_rays, quad, layout, rays,
                                         rows["rays"], planes)
             cases.append(rec)
-            if name == "sdf":
-                rec["smem"] = check_smem(
-                    quad, layout, p_nor, ref, out, plain_fwd, lib_fwd,
-                    fwd_bytes, fb, fby)
             emit({"phase": "kernels", **rec})
     return cases
 
 
-def check_smem(quad, layout, p_nor, ref, k1_out, plain_ms, lib_ms, nbytes,
-               b_ms, b_by) -> dict:
+def check_smem(quad, layout, p_nor, ref, k1_out, k1_rec) -> dict:
     """K3 on the same inputs as K1: against the plain version and K1 (the
-    same function, so the same bound, plain version and yardstick)."""
+    same function, so K1's bound, plain version and yardstick)."""
     import torch
 
     from myslam_torch.ops import smem_sample
@@ -335,10 +377,10 @@ def check_smem(quad, layout, p_nor, ref, k1_out, plain_ms, lib_ms, nbytes,
             1 if quad.dtype == torch.bfloat16 else 2):
         raise AssertionError(f"K3 {quad.dtype}: cluster {launch}")
     return {"max_abs_err": err, "rel_err_vs_k1": rel_k1, **launch,
-            "ms": time_ms(lambda: smem_sample.plane_sample_fwd_smem(
+            **kernel_times(lambda: smem_sample.plane_sample_fwd_smem(
                 quad, layout, p_nor)),
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
-            "bound_ms": b_ms, "bound_by": b_by}
+            **{k: k1_rec[k] for k in ("plain_ms", "library_ms", "bytes",
+                                      "bound_ms", "bound_by")}}
 
 
 def sample_calls(slam) -> list[dict]:
@@ -565,8 +607,9 @@ def main() -> int:
     spilled = spills(cuda_sample.BUILD_LOG)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": library, "ptxas": ptxas, "spills": spilled})
-    if any("plane_sample_bwd" in fn for fn in spilled):
-        raise AssertionError(f"K2 spills registers: {spilled}")
+    # K1, K2 and K3 (plane_sample_fwd, _bwd, _fwd_smem kernels).
+    if any("plane_sample_" in fn for fn in spilled):
+        raise AssertionError(f"K1, K2 or K3 spills registers: {spilled}")
 
     cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
@@ -587,9 +630,9 @@ def main() -> int:
     # SLAM loop's, K3's the bench_scatter phase's.
     head = next(c for c in cases if c["layout"] == "sdf"
                 and c["quad_dtype"] == "bfloat16" and "fwd" in c)
-    # The records each kernel was checked in (K2: both point orders).
-    checked = {"fwd": ("fwd",), "bwd": ("bwd", "bwd_rays"),
-               "smem": ("smem",)}
+    # The records each kernel was checked in (both point orders).
+    checked = {"fwd": ("fwd", "fwd_rays"), "bwd": ("bwd", "bwd_rays"),
+               "smem": ("smem", "smem_rays")}
     kernels = []
     for name, key, source, replaces, launches in (
             ("plane_sample_fwd", "fwd", "plane_sample.cu",
@@ -610,9 +653,12 @@ def main() -> int:
                                for k in checked[key] if k in c),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"]})
-    # K2 on the loop's own ray-ordered points at the same sample.
-    kernels[1]["ms_rays"] = head["bwd_rays"]["ms"]
+            "library_ms": rec["library_ms"],
+            # On the loop's own ray-ordered points at the same sample; and
+            # both orders' device time from a CUDA graph.
+            "ms_rays": head[key + "_rays"]["ms"],
+            "ms_graph": rec["ms_graph"],
+            "ms_rays_graph": head[key + "_rays"]["ms_graph"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,33 @@
 // for the 160,000-point mapping SDF call, ~50 us at 3.35 TB/s); the 6
 // row reads per point (512 B each in f32, 256 B in bf16) come mostly
 // from L2, since the quad atlases (6.3 MB SDF, 24.1 MB color in f32) fit
-// in the 50 MB L2.  Design: one warp per point.  Each lane owns 4
-// consecutive channels of the 4C-wide row, so a 128-wide f32 row is one
-// coalesced 16-byte load per lane (8 bytes in bf16) and the output store
-// is coalesced too.  The plane index math is warp-uniform.
+// in the 50 MB L2.  The first design (a warp per point, every lane
+// redoing the 6 planes' index math, a runtime level loop, plain stores)
+// stayed at half that bound and was slower with a bf16 quad, which moves
+// half the row bytes, than with an f32 one: instructions and latency, not
+// bytes, held it.  This design is K2's walk (plane_common.cuh, fwd_walk,
+// which K3 shares):
+//   1. A warp walks a run of `run` consecutive points (the wrapper's
+//      launch plan, fwd_launch_plan, which the C entry checks; 8, chosen
+//      on the card among 4-32).  A persistent grid striding over the runs
+//      measured no faster.
+//   2. The index math runs once per (point, plane), one lane per point,
+//      into shared memory (tile_coords, K2's too).
+//   3. Levels are a template parameter: all 3L row loads of a point issue
+//      together, and the next point's loads issue before this point's
+//      output is stored.
+//   4. A plane's row is loaded only where it differs from the row the
+//      warp holds for that plane: the loop's ray-ordered points share
+//      rows, and runs of 8 merge 960,000 (point, plane) row reads of the
+//      mapping SDF sample to ~470,000.
+//   5. The output goes out with streaming 16-byte stores (__stcs), so
+//      that it does not evict the atlas rows from L2.
+//   6. ptxas gets a register budget per level count (FWD_MIN_BLOCKS) and
+//      must not spill (chip_smoke.py fails the build if it does).
+// Each lane owns 4 consecutive channels of the 4C-wide row (passes of
+// 128 channels), so a row load is one coalesced 16-byte load per lane
+// (8 bytes in bf16) and a store is coalesced too.  The three planes of a
+// level are summed in the plain version's order.
 //
 // K2: what bounds it is the read of gbar, the same 164 MB (0.053 ms at
 // 3.35 TB/s with the quad rows and the quad gradient's rows).  The first
@@ -52,7 +75,7 @@
 //   5. The next point's gbar row is loaded before this point's warp sum,
 //      so it is in flight while the warp reduces; gbar is read once, with
 //      the streaming hint.
-// The plane index math (plane_coord_uv, K1's own) runs once per (point,
+// The plane index math (tile_coords, K1's too) runs once per (point,
 // plane), lane-parallel over a tile of 16 points, into shared memory,
 // instead of on all 32 lanes for every point: it was most of the
 // instructions of the first design.  Without the quad gradient
@@ -61,11 +84,16 @@
 // registers before their atomic, and atomics add in an order that
 // changes from run to run.  No global scratch memory, no
 // synchronisation; the launch is one kernel on the caller's stream.
-// Simple and right first for K1: no TMA, no shared-memory staging.
 
 #include "plane_common.cuh"
 
-#define WARPS_PER_BLOCK 8
+// K1's warps per block; the wrapper's launch plan must name the same.
+#define FWD_WARPS 8
+// K1's blocks per SM that ptxas must fit in registers: 4 (at most 64
+// registers, which the 1-2 level variants fit without spilling; 3 was
+// slower with an f32 quad) for 1-2 levels, 2 for 3-4, which hold more
+// rows.
+#define FWD_MIN_BLOCKS(NL) ((NL) <= 2 ? 4 : 2)
 // K2's warps per block; the wrapper's launch plan must name the same.
 #define BWD_WARPS 8
 // Points whose plane coordinates a K2 warp computes at once.
@@ -74,35 +102,6 @@
 // registers) for the loop's 1-2 levels, where ptxas left alone aims
 // lower and spills; 1 for 3-4 levels, which need more.
 #define BWD_MIN_BLOCKS(NL) ((NL) <= 2 ? 2 : 1)
-#define FULL_MASK 0xffffffffu
-
-// The (u, v) axes of a level's plane o, in the table's order (xy, xz,
-// yz; ORIENTATIONS in models/planes.py); plane_sample_bwd checks the
-// table against them.
-__host__ __device__ constexpr int axis_u(int o) { return o == 2 ? 1 : 0; }
-__host__ __device__ constexpr int axis_v(int o) { return o == 0 ? 1 : 2; }
-
-// A quad row's 4 channels as K2 holds them in registers: a float4 in
-// f32, 4 packed bfloat16 in bf16 (half the registers).
-template <typename T> struct Row4;
-template <> struct Row4<float> {
-  using V = float4;
-  static __device__ __forceinline__ V load(const float* src) {
-    return __ldg(reinterpret_cast<const float4*>(src));
-  }
-  static __device__ __forceinline__ void unpack(V v, float (&g)[4]) {
-    g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
-  }
-};
-template <> struct Row4<__nv_bfloat16> {
-  using V = uint2;
-  static __device__ __forceinline__ V load(const __nv_bfloat16* src) {
-    return __ldg(reinterpret_cast<const uint2*>(src));
-  }
-  static __device__ __forceinline__ void unpack(V v, float (&g)[4]) {
-    bf16x4_to_float(v, g);
-  }
-};
 
 // One point's gbar lanes of every level: 16 bytes per lane and level,
 // read once (streaming); zeros on lanes past the row.
@@ -139,41 +138,18 @@ __device__ __forceinline__ float warp_sum3(const float (&v)[3], int lane) {
 }
 
 // K1: out[n, l*c4 + c] = sum over the level's 3 planes of
-//     quad[row, c] * fx(c) * fy(c).
-template <typename T>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+//     quad[row, c] * fx(c) * fy(c), by fwd_walk.
+template <typename T, int NL>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS(NL))
 plane_sample_fwd_kernel(const float* __restrict__ p_nor,
                         const T* __restrict__ quad, float* __restrict__ out,
-                        int n, int c4, int n_levels, PlaneTable t) {
-  const int pt = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (pt >= n) return;  // warp-uniform
-  const float p[3] = {p_nor[3 * pt], p_nor[3 * pt + 1], p_nor[3 * pt + 2]};
-  const int C = c4 >> 2;
-  float* dst = out + (size_t)pt * n_levels * c4;
-  for (int l = 0; l < n_levels; ++l) {
-    PlaneCoord pc[3];
-#pragma unroll
-    for (int o = 0; o < 3; ++o) pc[o] = plane_coord(p, t, 3 * l + o);
-    for (int c = lane * 4; c < c4; c += 128) {
-      const int corner = c / C;  // the 4 channels share a corner (C % 4 == 0)
-      const float sx = (corner & 1) ? 1.0f : -1.0f;
-      const float sy = (c >= 2 * C) ? 1.0f : -1.0f;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int o = 0; o < 3; ++o) {
-        const float fx = 0.5f + (pc[o].wx - 0.5f) * sx;
-        const float fy = 0.5f + (pc[o].wy - 0.5f) * sy;
-        const float w = fx * fy;
-        float g[4];
-        load4(quad + (size_t)pc[o].row * c4 + c, g);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] += g[k] * w;
-      }
-      *reinterpret_cast<float4*>(dst + l * c4 + c) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-    }
-  }
+                        int n, int c4, int run, PlaneTable t) {
+  __shared__ float4 coords[FWD_WARPS][FWD_TILE][3 * NL];
+  const int warp = threadIdx.x >> 5;
+  SmemTile<3 * NL> tile{coords[warp]};
+  fwd_walk<T, NL>(GlobalRows<T>{quad, c4}, tile, p_nor, out, n, c4, run,
+                  blockIdx.x * FWD_WARPS + warp, gridDim.x * FWD_WARPS,
+                  threadIdx.x & 31, t);
 }
 
 // K2: quad_grad[row, c] += gbar[n, l*c4 + c] * fx(c) * fy(c)  (if asked)
@@ -220,21 +196,7 @@ plane_sample_bwd_kernel(const float* __restrict__ gbar,
     load_gbar<NL>(gl, gbar + first * stride + c, c4, on);
     for (int tile = first; tile < end; tile += BWD_TILE) {
       const int tn = min(BWD_TILE, end - tile);
-      __syncwarp();
-      if (lane < tn) {
-        const float* src = p_nor + 3 * (size_t)(tile + lane);
-        const float p[3] = {__ldg(src), __ldg(src + 1), __ldg(src + 2)};
-#pragma unroll
-        for (int k = 0; k < P; ++k) {
-          const PlaneCoord pc = plane_coord_uv(p[axis_u(k % 3)],
-                                               p[axis_v(k % 3)], t, k);
-          coords[warp][lane][k] = make_float4(
-              __int_as_float(pc.row), pc.wx, pc.wy,
-              __int_as_float((pc.in_x != 0.0f ? 1 : 0) |
-                             (pc.in_y != 0.0f ? 2 : 0)));
-        }
-      }
-      __syncwarp();
+      tile_coords<P>(coords[warp], p_nor, tile, tn, lane, t);
       for (int i = 0; i < tn; ++i) {
         const int pt = tile + i;
         // Rows first, so that every plane's row load is in flight at once.
@@ -330,25 +292,50 @@ static void launch_bwd_levels(int n_levels, dim3 grid, cudaStream_t s,
   }
 }
 
+template <typename T>
+static void launch_fwd_levels(int n_levels, dim3 grid, cudaStream_t s,
+                              const float* p_nor, const void* quad,
+                              float* out, int n, int c4, int run,
+                              const PlaneTable& t) {
+  const dim3 block(FWD_WARPS * 32);
+  const T* q = (const T*)quad;
+  switch (n_levels) {
+    case 1: plane_sample_fwd_kernel<T, 1><<<grid, block, 0, s>>>(
+        p_nor, q, out, n, c4, run, t); break;
+    case 2: plane_sample_fwd_kernel<T, 2><<<grid, block, 0, s>>>(
+        p_nor, q, out, n, c4, run, t); break;
+    case 3: plane_sample_fwd_kernel<T, 3><<<grid, block, 0, s>>>(
+        p_nor, q, out, n, c4, run, t); break;
+    default: plane_sample_fwd_kernel<T, 4><<<grid, block, 0, s>>>(
+        p_nor, q, out, n, c4, run, t); break;
+  }
+}
+
 // Plain C interface (bound with ctypes).  `planes` is a host array of
 // (H, W, row offset, u-axis, v-axis) per plane.  Returns the launch's
 // cudaGetLastError() (0 on success); outputs are written on `stream`.
+// `run`, `warps` and `blocks` are the wrapper's launch plan: warp w of
+// the grid walks points [w*run, min((w+1)*run, n)); the plan must cover
+// every point with no empty block, and a run is at most one tile.
 extern "C" int plane_sample_fwd(const float* p_nor, const void* quad,
                                 int quad_bf16, float* out, int n, int c4,
-                                int n_levels, const int* planes,
-                                void* stream) {
+                                int n_levels, const int* planes, int run,
+                                int warps, int blocks, void* stream) {
   PlaneTable t;
-  if (n <= 0 || c4 % 16 != 0 || !fill_table(&t, planes, n_levels))
+  const long long per_block = (long long)warps * run;
+  if (n <= 0 || c4 <= 0 || c4 % 16 != 0 ||
+      !fill_table(&t, planes, n_levels) || warps != FWD_WARPS || run <= 0 ||
+      run > FWD_TILE || blocks <= 0 || per_block * blocks < n ||
+      per_block * (blocks - 1) >= n)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(WARPS_PER_BLOCK * 32);
-  const dim3 grid((n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(blocks);
   if (quad_bf16)
-    plane_sample_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        p_nor, (const __nv_bfloat16*)quad, out, n, c4, n_levels, t);
+    launch_fwd_levels<__nv_bfloat16>(n_levels, grid, s, p_nor, quad, out, n,
+                                     c4, run, t);
   else
-    plane_sample_fwd_kernel<float><<<grid, block, 0, s>>>(
-        p_nor, (const float*)quad, out, n, c4, n_levels, t);
+    launch_fwd_levels<float>(n_levels, grid, s, p_nor, quad, out, n, c4, run,
+                             t);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,12 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 LAUNCHES = {"plane_sample_fwd": 0, "plane_sample_bwd": 0,
             "plane_sample_fwd_smem": 0}
 
+# K1's launch: each warp walks one run of FWD_RUN consecutive points (at
+# most a tile of 32), loading a plane's row only where it differs from the
+# point before's (chosen on the card among 4, 8, 16 and 32, PERF.md);
+# FWD_WARPS is the kernel's compile-time block (plane_sample.cu).
+FWD_RUN = 8
+FWD_WARPS = 8
 # K2's launch: each warp walks BWD_RUN consecutive points, merging the
 # quad-gradient updates of points that share a row (chosen on the card
 # among 8, 16 and 40 points, PERF.md); BWD_WARPS is the kernel's
@@ -225,13 +231,14 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.plane_sample_fwd.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, vp]
+        lib.plane_sample_fwd.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, ci,
+                                         ci, ci, vp]
         lib.plane_sample_fwd.restype = ci
         lib.plane_sample_bwd.argtypes = [vp, vp, vp, ci, vp, vp, ci, ci, ci,
                                          vp, ci, ci, ci, vp]
         lib.plane_sample_bwd.restype = ci
         lib.plane_sample_fwd_smem.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp,
-                                              ci, ci, ci, vp, vp]
+                                              ci, ci, ci, ci, vp, vp]
         lib.plane_sample_fwd_smem.restype = ci
         _lib = lib
     return _lib
@@ -281,6 +288,14 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def fwd_launch_plan(n: int) -> tuple[int, int, int]:
+    """K1's launch for n > 0 points: (points per run, warps per block,
+    blocks).  Warp w of the grid walks run w, points [w*run, min((w+1)*run,
+    n)), so the plan covers every point once and leaves no block empty."""
+    runs = -(-n // FWD_RUN)
+    return FWD_RUN, FWD_WARPS, -(-runs // FWD_WARPS)
+
+
 def bwd_launch_plan(n: int) -> tuple[int, int, int]:
     """K2's launch for n > 0 points: (points per warp, warps per block,
     blocks).  Warp w of the grid walks points [w*run, min((w+1)*run, n)),
@@ -292,7 +307,8 @@ def bwd_launch_plan(n: int) -> tuple[int, int, int]:
 def plane_sample_fwd(quad: torch.Tensor, layout: PlaneLayout,
                      p_nor: torch.Tensor) -> torch.Tensor:
     """Tri-plane sample forward, (N, L*4C) float32.  CPU tensors: the
-    plain version; CUDA tensors: kernel K1."""
+    plain version; CUDA tensors: kernel K1 (runs of consecutive points
+    per warp that reuse the rows they share; ``fwd_launch_plan``)."""
     if p_nor.device.type == "cpu" and quad.device.type == "cpu":
         return plane_sample_fwd_ref(quad, layout, p_nor)
     _check_common(quad, layout, p_nor)
@@ -303,11 +319,12 @@ def plane_sample_fwd(quad: torch.Tensor, layout: PlaneLayout,
     if n == 0:
         return out
     lib = load()
+    run, warps, blocks = fwd_launch_plan(n)
     err = lib.plane_sample_fwd(
         p_nor.data_ptr(), quad.data_ptr(), int(quad.dtype == torch.bfloat16),
         out.data_ptr(), n, C4, layout.n_levels,
-        ctypes.cast(_plane_table(layout), ctypes.c_void_p),
-        torch.cuda.current_stream(p_nor.device).cuda_stream)
+        ctypes.cast(_plane_table(layout), ctypes.c_void_p), run, warps,
+        blocks, torch.cuda.current_stream(p_nor.device).cuda_stream)
     _raise_on(err, "plane_sample_fwd")
     LAUNCHES["plane_sample_fwd"] += 1
     return out

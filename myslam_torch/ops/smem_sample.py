@@ -8,7 +8,9 @@ whole quad atlas in the TPU's VMEM; an H100 block holds at most 227 KB
 of shared memory, so K3 (``myslam_torch/csrc/plane_sample_smem.cu``)
 keeps the coarse level there, split over a thread-block cluster where it
 exceeds one block's budget, and reads finer rows from device memory.
-It computes the same function as K1 (``ops/cuda_sample.py``), from
+It takes K1's walk (runs of ``SMEM_RUN`` consecutive points per warp,
+reusing the rows they share).  It computes the same function as K1
+(``ops/cuda_sample.py``), from
 ``p_nor`` to the (N, L*4C) float32 corner features, on the quad cast to
 ``atlas_dtype`` (bfloat16 by default, as in B2); the weighting runs in
 float32.
@@ -36,9 +38,14 @@ from myslam_torch.ops import cuda_sample
 # bytes per block), and the portable thread-block cluster size.
 SMEM_BUDGET = 224 * 1024
 MAX_CLUSTER = 8
+# Consecutive points a K3 warp walks at a time (at most a tile of 32),
+# reusing the rows they share, as K1 does (cuda_sample.FWD_RUN).
+SMEM_RUN = 16
 
 # The shape of K3's last launch: cluster size, blocks launched, coarse
-# rows per block and its shared memory.
+# rows per block, points per run, a block's shared memory and where the
+# walk keeps a tile's plane coordinates ("shared" memory after the coarse
+# rows where they leave room, else "registers").
 LAST_LAUNCH: dict = {}
 
 
@@ -96,18 +103,19 @@ def plane_sample_fwd_smem(quad: torch.Tensor, layout: PlaneLayout,
     if n == 0:
         return out
     lib = cuda_sample.load()
-    grid = ctypes.c_int(0)
+    info = (ctypes.c_int * 3)()  # blocks, shared memory, coordinates
     err = lib.plane_sample_fwd_smem(
         p_nor.data_ptr(), quad.data_ptr(), int(quad.dtype == torch.bfloat16),
         out.data_ptr(), n, C4, layout.n_levels,
         ctypes.cast(cuda_sample._plane_table(layout), ctypes.c_void_p),
-        rows, blocks, per_block, ctypes.addressof(grid),
+        rows, blocks, per_block, SMEM_RUN, ctypes.addressof(info),
         torch.cuda.current_stream(p_nor.device).cuda_stream)
     cuda_sample._raise_on(err, "plane_sample_fwd_smem")
     cuda_sample.LAUNCHES["plane_sample_fwd_smem"] += 1
-    LAST_LAUNCH.update(cluster_blocks=blocks, grid_blocks=grid.value,
-                       rows_per_block=per_block,
-                       smem_bytes=per_block * C4 * quad.element_size())
+    LAST_LAUNCH.update(cluster_blocks=blocks, grid_blocks=info[0],
+                       rows_per_block=per_block, run=SMEM_RUN,
+                       smem_bytes=info[1],
+                       coords="shared" if info[2] else "registers")
     return out
 
 

@@ -13,8 +13,14 @@ held against K1 on the same quad, at atol 1e-5.  K2's point orders
 (one row for all points, a new row at every point, run and block edges,
 points past the border, ray-ordered points) are held at 1e-5 of the
 largest value, ``chip_smoke.py``'s limit: runs merged in registers and
-vector atomics sum in another order than ``index_add_``.
+vector atomics sum in another order than ``index_add_``.  K1 and K3
+walk the same point orders (and a run that crosses a tile's end), 1-4
+levels, c_dim 8/32/64 and both quad types, held against the plain
+version and each other at the same limit.
 """
+
+import ctypes
+
 
 import numpy as np
 import pytest
@@ -109,14 +115,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bound,res,c_dim,dtype,blocks", [
-    (BOUND, [0.48, 0.24], C_DIM, torch.bfloat16, 1),
-    (ROOM0_BOUND, [0.24, 0.06], 32, torch.bfloat16, 3),
-    (ROOM0_BOUND, [0.24, 0.06], 32, torch.float32, 6),
+@pytest.mark.parametrize("bound,res,c_dim,dtype,blocks,coords", [
+    (BOUND, [0.48, 0.24], C_DIM, torch.bfloat16, 1, "shared"),
+    (ROOM0_BOUND, [0.24, 0.06], 32, torch.bfloat16, 3, "registers"),
+    (ROOM0_BOUND, [0.24, 0.06], 32, torch.float32, 6, "registers"),
 ])
 def test_smem_kernel_matches_plain_version_and_k1(dev, bound, res, c_dim,
-                                                  dtype, blocks):
-    """K3 in one block and in clusters of 3 and 6 blocks."""
+                                                  dtype, blocks, coords):
+    """K3 in one block and in clusters of 3 and 6 blocks, with the tile's
+    coordinates in shared memory and, where the coarse rows fill it, in
+    registers."""
     layout = make_layout(bound, res, c_dim)
     rng = np.random.default_rng(10)
     atlas = 0.01 * rng.normal(size=(layout.total_rows, c_dim))
@@ -130,6 +138,7 @@ def test_smem_kernel_matches_plain_version_and_k1(dev, bound, res, c_dim,
     assert cuda_sample.LAUNCHES["plane_sample_fwd_smem"] == before + 1
     assert smem_sample.LAST_LAUNCH["cluster_blocks"] == blocks
     assert smem_sample.LAST_LAUNCH["grid_blocks"] % blocks == 0
+    assert smem_sample.LAST_LAUNCH["coords"] == coords
     ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     torch.testing.assert_close(
@@ -140,9 +149,9 @@ def test_smem_kernel_matches_plain_version_and_k1(dev, bound, res, c_dim,
     torch.testing.assert_close(built(quad.float(), p), out, atol=0, rtol=0)
 
 
-def _bwd_points(kind: str, rng) -> np.ndarray:
-    """Points in the orders K2's walk has to get right."""
-    R, B = cuda_sample.BWD_RUN, cuda_sample.BWD_WARPS
+def _walk_points(kind: str, rng, R: int, B: int) -> np.ndarray:
+    """Points in the orders a walk of runs of R points by blocks of B
+    warps has to get right."""
     cell = np.array([0.1, -0.2, 0.3])  # one cell on every plane
     if kind == "one_row":
         return cell + rng.uniform(0, 1e-3, size=(3 * R + 5, 3))
@@ -153,7 +162,7 @@ def _bwd_points(kind: str, rng) -> np.ndarray:
     if kind == "past_the_border":
         return rng.uniform(-1.3, 1.3, size=(R * B + 9, 3))
     n = {"n_1": 1, "n_run_minus_1": R - 1, "n_run_plus_1": R + 1,
-         "n_ragged_block": 3 * R * B + 7}[kind]
+         "n_tile_plus_1": 33, "n_ragged_block": 3 * R * B + 7}[kind]
     return rng.uniform(-1.05, 1.05, size=(n, 3))
 
 
@@ -190,7 +199,7 @@ def test_bwd_kernel_walks_every_point_order(dev, kind, dtype):
     atlas = torch.tensor(rng.normal(size=(layout.total_rows, C_DIM)),
                          dtype=torch.float32, device=dev)
     quad = pack_quad(atlas, layout).to(dtype).contiguous()
-    pts = _bwd_points(kind, rng)
+    pts = _walk_points(kind, rng, cuda_sample.BWD_RUN, cuda_sample.BWD_WARPS)
     p = torch.tensor(pts, dtype=torch.float32, device=dev)
     gbar = torch.tensor(rng.normal(size=(len(pts), 2 * 4 * C_DIM)),
                         dtype=torch.float32, device=dev)
@@ -232,3 +241,108 @@ def test_bwd_kernel_levels_and_widths(dev, res, c_dim):
     gbar = torch.tensor(rng.normal(size=(999, len(res) * 4 * c_dim)),
                         dtype=torch.float32, device=dev)
     _check_bwd(dev, layout, quad, p, gbar)
+
+
+def _check_fwd(layout, quad, p):
+    """K1 and K3 against the plain version and each other, one launch
+    each."""
+    ref = cuda_sample.plane_sample_fwd_ref(quad, layout, p)
+    before = dict(cuda_sample.LAUNCHES)
+    out = cuda_sample.plane_sample_fwd(quad, layout, p)
+    out3 = smem_sample.plane_sample_fwd_smem(quad, layout, p)
+    torch.cuda.synchronize()
+    assert cuda_sample.LAUNCHES == {
+        **before, "plane_sample_fwd": before["plane_sample_fwd"] + 1,
+        "plane_sample_fwd_smem": before["plane_sample_fwd_smem"] + 1}
+    assert out.shape == out3.shape == ref.shape
+    _assert_within(out, ref, "K1")
+    _assert_within(out3, ref, "K3")
+    _assert_within(out3, out, "K3 against K1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", [
+    "one_row", "new_row_each_point", "n_1", "n_run_minus_1", "n_run_plus_1",
+    "n_tile_plus_1", "n_ragged_block", "past_the_border"])
+def test_fwd_kernels_walk_every_point_order(dev, kind, dtype):
+    layout = make_layout(BOUND, [0.48, 0.24], C_DIM)
+    rng = np.random.default_rng(14)
+    atlas = torch.tensor(rng.normal(size=(layout.total_rows, C_DIM)),
+                         dtype=torch.float32, device=dev)
+    quad = pack_quad(atlas, layout).to(dtype).contiguous()
+    pts = _walk_points(kind, rng, cuda_sample.FWD_RUN, cuda_sample.FWD_WARPS)
+    _check_fwd(layout, quad, torch.tensor(pts, dtype=torch.float32,
+                                          device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_kernels_on_ray_ordered_points(dev, dtype):
+    """The loop's own points (frame 0's rays, ray-major) on the room's
+    SDF layout at c_dim 8."""
+    cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
+    cfg["model"]["c_dim"] = C_DIM
+    layout = layouts(cfg)["sdf"]
+    rng = np.random.default_rng(15)
+    atlas = torch.tensor(rng.normal(size=(layout.total_rows, C_DIM)),
+                         dtype=torch.float32, device=dev)
+    quad = pack_quad(atlas, layout).to(dtype).contiguous()
+    _check_fwd(layout, quad, loop_points(cfg, 300, dev, seed=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,c_dim", [
+    ([0.48], 8), ([0.48, 0.24], 32), ([0.48, 0.24, 0.12], 8),
+    ([0.48, 0.24, 0.12, 0.06], 8), ([0.48, 0.24], 64)])
+def test_fwd_kernels_levels_and_widths(dev, res, c_dim, dtype):
+    """1-4 levels, and rows wider than 128 channels (two passes of the
+    warp, each with its own held rows)."""
+    layout = make_layout(BOUND, res, c_dim)
+    rng = np.random.default_rng(16)
+    atlas = torch.tensor(rng.normal(size=(layout.total_rows, c_dim)),
+                         dtype=torch.float32, device=dev)
+    quad = pack_quad(atlas, layout).to(dtype).contiguous()
+    p = torch.tensor(rng.uniform(-1.05, 1.05, size=(999, 3)),
+                     dtype=torch.float32, device=dev)
+    _check_fwd(layout, quad, p)
+
+
+@pytest.mark.cuda
+def test_fwd_entries_refuse_a_bad_plan_or_table(dev):
+    """The C entries return cudaErrorInvalidValue (1) for a run longer
+    than a tile, a block with no run, a plan that leaves points out, or
+    plane axes other than the orientation's; the wrapper's own plan and
+    table pass."""
+    layout = make_layout(BOUND, [0.48, 0.24], C_DIM)
+    quad = torch.zeros((layout.total_rows, 4 * C_DIM), device=dev)
+    n = 100
+    p = torch.zeros((n, 3), device=dev)
+    out = torch.empty((n, 2 * 4 * C_DIM), device=dev)
+    lib = cuda_sample.load()
+    good = cuda_sample._plane_table(layout)
+    bad = (ctypes.c_int * len(good))(*good)
+    bad[3], bad[4] = bad[4], bad[3]  # plane 0's axes swapped
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def k1(table, run, warps, blocks):
+        return lib.plane_sample_fwd(
+            p.data_ptr(), quad.data_ptr(), 0, out.data_ptr(), n,
+            4 * C_DIM, 2, ctypes.cast(table, ctypes.c_void_p), run, warps,
+            blocks, stream)
+
+    run, warps, blocks = cuda_sample.fwd_launch_plan(n)
+    assert k1(good, run, warps, blocks) == 0
+    assert k1(bad, run, warps, blocks) == 1
+    assert k1(good, 33, warps, 1) == 1  # a run longer than a tile
+    assert k1(good, run, warps, blocks + 1) == 1  # an empty block
+    assert k1(good, run, warps, blocks - 1) == 1  # points left out
+    assert k1(good, run, warps + 1, blocks) == 1  # not the kernel's block
+    info = (ctypes.c_int * 3)()
+    rows = smem_sample.coarse_rows(layout)
+    assert lib.plane_sample_fwd_smem(
+        p.data_ptr(), quad.data_ptr(), 0, out.data_ptr(), n, 4 * C_DIM, 2,
+        ctypes.cast(bad, ctypes.c_void_p), rows, 1, rows,
+        smem_sample.SMEM_RUN, ctypes.addressof(info), stream) == 1
+    torch.cuda.synchronize()
