@@ -19,9 +19,10 @@ samples per ray) in both math lanes by default:
 and prints one JSON line whose top-level fields are the headline lane's,
 with both lanes under ``"lanes"``.  Throughput is window-level: frames
 from the first one after the warmup to the drain of the device queue,
-over that span.  ATE is over frames 1 onwards.  After the line, the
-final checkpoint is written (its messages go to stderr).  Meshing is not
-ported yet (ROADMAP A11).
+over that span.  ATE is over frames 1 onwards.  After the line, outside
+the timed window, the final checkpoint and (``--mesh``) the final mesh
+are written, their messages on stderr; a failure there raises and the
+run exits non-zero, the metric line already printed.
 
 ``vs_baseline`` compares with REFERENCE_FPS, the reference ESLAM's
 end-to-end Replica throughput estimated from its paper (~0.18 s/frame on
@@ -59,6 +60,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=os.path.join(REPO, "output", "bench_torch"))
     p.add_argument("--cold-threshold-s", type=float, default=90.0,
                    help="frame-0 wall above this means a cold start")
+    p.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
+                   help="final meshing after the metric line: auto skips "
+                   "it after a cold start (the metric is printed either "
+                   "way)")
     p.add_argument("--lanes", choices=("both", "topk", "exact"),
                    default="both",
                    help="math lanes to run; 'both' (default) nests the "
@@ -154,7 +159,7 @@ def run_lane(args, exact: bool, seed: int = 0):
 def _exact_lane_subprocess(args) -> dict:
     """The exact lane in a fresh process; its record, or the error."""
     cmd = [sys.executable, os.path.abspath(__file__),
-           "--lanes", "exact",
+           "--lanes", "exact", "--mesh", "off",
            "--frames", str(args.frames),
            "--warmup-frames", str(args.warmup_frames),
            "--seed", str(args.seed),
@@ -187,21 +192,26 @@ def main(argv=None) -> dict:
         lanes["exact"] = _exact_lane_subprocess(args)
     rec, slam = run_lane(args, exact=headline_exact, seed=args.seed)
     lanes["exact" if headline_exact else "topk"] = dict(rec)
+    cold = rec["cache"] == "cold"
+    do_mesh = args.mesh == "on" or (args.mesh == "auto" and not cold)
     line = {
         "metric": ("synthetic_room_e2e_frames_per_s_exact" if headline_exact
                    else "synthetic_room_e2e_frames_per_s"),
         **rec,
         "lanes": lanes,
-        "final_mesh": "skipped(not ported)",
+        "final_mesh": ("pending" if do_mesh else
+                       "skipped(cold-cache)" if args.mesh == "auto"
+                       else "skipped(--mesh off)"),
     }
     print(json.dumps(line), flush=True)
 
-    # The checkpoint after the metric line; its messages go to stderr so
-    # the metric stays the only line on stdout.
+    # The checkpoint and the mesh after the metric line; their messages
+    # go to stderr so the metric stays the only line on stdout.
     with contextlib.redirect_stdout(sys.stderr):
         t1 = time.perf_counter()
-        path = slam.finalize(mesh=False, checkpoint=True)
-        print(f"checkpoint {path} ({time.perf_counter() - t1:.1f} s)")
+        path = slam.finalize(mesh=do_mesh, checkpoint=True)
+        print(f"checkpoint {path}, mesh {slam.final_mesh} "
+              f"({time.perf_counter() - t1:.1f} s)")
     return line
 
 

@@ -22,18 +22,31 @@ Phases, one JSON line each:
                      times (``ms``: CUDA events over calls made one after
                      another; ``ms_graph``: over calls captured in a CUDA
                      graph), the plain versions' times, a library
-                     yardstick and the bound;
+                     yardstick and the bound; and K1 on one chunk of the
+                     final SDF volume (420,000 grid-ordered points, bf16
+                     quad), the meshing path's call;
   3. slam         -- the SLAM loop: SLAMSystem on configs/Synthetic/room.yaml
                      at full width for 13 frames (frame 0 mapped for 1000
                      iterations, 12 tracked frames, frames 4, 8 and 12
                      mapped), with per-frame times, K1/K2 launch counts
                      and ATE;
-  4. bench_scatter -- K3's path: tools/bench_scatter.py's gather and
+  4. mesh         -- the same SLAMSystem's finalize(): the checkpoint,
+                     the final mesh (SDF volume through K1, marching,
+                     vertex colors through K1) and its culled copy, with
+                     the stage seconds, counts, K1 launches against the
+                     expected count and peak memory; K1 on the first
+                     chunk of vertex colors against its plain version,
+                     and those vertices' uint8 colors in the mesh file
+                     against the plain version's; then the analytic GT
+                     mesh at 1 cm, both meshes culled in eval_rec mode
+                     with the 13 frames, and the 3-D metrics (accuracy
+                     must stay under 2 cm);
+  5. bench_scatter -- K3's path: tools/bench_scatter.py's gather and
                      scatter sections at Replica room0 scale, one line per
                      strategy; K3 must agree with K1 and its plain version
                      on both room0 atlases and run in clusters of at
                      least 3 blocks;
-  5. bench_exact  -- bench_torch.py's exact lane on room.yaml at full
+  6. bench_exact  -- bench_torch.py's exact lane on room.yaml at full
                      width, cut to 13 frames (5 warmup): fps, ATE, K1/K2
                      launches, and its final checkpoint loaded back into a
                      fresh SLAMSystem bit for bit.
@@ -42,7 +55,9 @@ The build fails the run if ptxas reports a register spill in K1, K2 or
 K3.  Then the card's name and power limit, the kernels line (K1's, K2's
 and K3's times at the mapping SDF sample on uniform points, and as
 ``ms_rays`` on the loop's ray-ordered points, each also as
-``ms_graph`` / ``ms_rays_graph``), and last
+``ms_graph`` / ``ms_rays_graph``; K1's at the volume chunk as
+``ms_mesh`` / ``ms_mesh_graph`` and at the vertex-color chunk as
+``ms_mesh_colors`` / ``ms_mesh_colors_graph``), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -85,6 +100,8 @@ TRACK_CASE = ("sdf", 2000, 0, ("bfloat16",))
 BENCH_POINTS = 160_000
 BENCH_ITERS = 10
 EXACT_WARMUP = 5
+# The analytic GT mesh's resolution (meters) in phase mesh.
+GT_RESOLUTION = 0.01
 
 
 def emit(obj) -> None:
@@ -354,6 +371,93 @@ def check_kernels(cfg, layouts) -> list[dict]:
     return cases
 
 
+def check_mesh_chunk(cfg, layout) -> dict:
+    """K1 at the meshing path's call: the middle chunk of the final SDF
+    volume (whole x-rows of the grid, z fastest; utils/mesher.py), on a
+    bf16 quad of the SDF atlas, as Mesher.eval_sdf_volume makes it."""
+    import torch
+
+    from myslam_torch.core.geometry import normalize_3d_coordinate
+    from myslam_torch.models.planes import compute_bound
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.ops.plane_sample import pack_quad
+    from myslam_torch.tools.bench_sample_bwd import row_updates
+    from myslam_torch.utils.mesher import Mesher
+
+    dev = torch.device(DEVICE)
+    mesher = Mesher(cfg, scene=None, cam=None)
+    chunks = mesher.volume_chunks()
+    x0, x1 = chunks[len(chunks) // 2]
+    bound = torch.as_tensor(compute_bound(cfg), dtype=torch.float32).to(dev)
+    p_nor = normalize_3d_coordinate(mesher.chunk_points(x0, x1, dev), bound)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    C = layout.c_dim
+    atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
+                               device=dev)
+    quad = pack_quad(atlas, layout).to(torch.bfloat16).contiguous()
+    planes = [atlas[off:off + H * W].reshape(H, W, C).permute(2, 0, 1)
+              [None].contiguous() for _, _, _, _, H, W, off in layout.planes()]
+    rows = row_updates(layout, p_nor, cuda_sample.FWD_RUN)
+    rec, _, _ = check_fwd(quad, layout, p_nor, rows, planes)
+    xs, ys, zs = mesher.grid_axes()
+    out = {"case": "mesh_volume_chunk", "layout": "sdf",
+           "rows": layout.total_rows, "points": p_nor.shape[0],
+           "quad_dtype": "bfloat16", "chunk": [x0, x1],
+           "chunks": len(chunks), "grid": [len(xs), len(ys), len(zs)],
+           "fwd": rec}
+    emit({"phase": "kernels", **out})
+    return out
+
+
+def check_color_chunk(slam, verts, colors) -> dict:
+    """K1 at the meshing path's other call: the first chunk of vertex
+    colors (up to ``color_batch`` vertices of the final mesh, in its
+    vertex order) on the bf16 quad of the run's color atlas, as
+    Mesher.vertex_colors_u8_device makes it; and the mesh file's uint8
+    colors of those vertices against the plain version's, within 1."""
+    import numpy as np
+    import torch
+
+    from myslam_torch.core.geometry import normalize_3d_coordinate
+    from myslam_torch.models.decoders import decode_rgb_corners
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.ops.plane_sample import pack_quad
+    from myslam_torch.render.renderer import _row_map
+    from myslam_torch.tools.bench_sample_bwd import row_updates
+
+    dev = torch.device(DEVICE)
+    mesher, scene = slam.mesher, slam.scene
+    layout = scene.color_layout
+    n = min(len(verts), mesher.color_batch)
+    pts = torch.as_tensor(verts[:n] * np.float32(mesher.scale)).to(dev)
+    p_nor = normalize_3d_coordinate(pts, scene.bound_tensor(dev))
+    atlas = slam.map_state.color_atlas.detach()
+    C = layout.c_dim
+    quad = pack_quad(atlas, layout).to(torch.bfloat16).contiguous()
+    planes = [atlas[off:off + H * W].reshape(H, W, C).permute(2, 0, 1)
+              [None].contiguous() for _, _, _, _, H, W, off in layout.planes()]
+    rows = row_updates(layout, p_nor, cuda_sample.FWD_RUN)
+    rec, _, ref = check_fwd(quad, layout, p_nor, rows, planes)
+    with torch.no_grad():
+        rgb = decode_rgb_corners(slam.map_state.decoder, ref,
+                                 _row_map(layout, dev))
+    plain_u8 = torch.clamp(torch.round(rgb * 255.0), 0, 255).to(
+        torch.uint8).cpu().numpy()
+    color_err = int(np.abs(plain_u8.astype(np.int64)
+                           - colors[:n].astype(np.int64)).max())
+    # Tolerance: K1's features within 1e-5 of the plain version's can move
+    # a color across a rounding boundary, by one step at most.
+    if not color_err <= 1:
+        raise AssertionError(f"vertex colors differ from the plain "
+                             f"version's by {color_err} (limit 1)")
+    out = {"case": "mesh_vertex_colors", "layout": "color",
+           "rows": layout.total_rows, "points": n, "quad_dtype": "bfloat16",
+           "vertices": len(verts), "color_u8_max_err": color_err,
+           "fwd": rec}
+    emit({"phase": "kernels", **out})
+    return out
+
+
 def check_smem(quad, layout, p_nor, ref, k1_out, k1_rec) -> dict:
     """K3 on the same inputs as K1: against the plain version and K1 (the
     same function, so K1's bound, plain version and yardstick)."""
@@ -420,7 +524,7 @@ def check_launches(launches: dict, expected: int) -> None:
                              f"each of {SLAM_KERNELS} and no K3")
 
 
-def run_slam(cfg) -> dict:
+def run_slam(cfg) -> tuple:
     import numpy as np
     import torch
 
@@ -492,7 +596,113 @@ def run_slam(cfg) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit(out)
-    return out
+    return out, slam
+
+
+def check_mesh_file(path: str) -> tuple:
+    """A non-empty mesh with finite vertices and faces that index them."""
+    import numpy as np
+
+    from myslam_torch.utils.ply import read_ply
+
+    verts, faces, colors = read_ply(path)
+    if len(faces) == 0:
+        raise AssertionError(f"{path}: empty mesh")
+    if not np.isfinite(verts).all():
+        raise AssertionError(f"{path}: non-finite vertex")
+    if faces.min() < 0 or faces.max() >= len(verts):
+        raise AssertionError(f"{path}: face index out of range")
+    if colors is not None and colors.shape != verts.shape:
+        raise AssertionError(f"{path}: colors {colors.shape}")
+    return verts, faces, colors
+
+
+def run_mesh(slam) -> dict:
+    """The SLAM run's finalize(): checkpoint, final mesh and its culled
+    copy, with K1's launches counted from zero; then the analytic GT
+    mesh, both meshes culled in eval_rec mode with the run's frames (GT
+    poses, as tools/eval_synthetic_recon.py does) and the 3-D metrics."""
+    import copy
+
+    import torch
+
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.tools.cull_mesh import cull_mesh
+    from myslam_torch.tools.eval_recon import calc_3d_metric
+    from myslam_torch.utils.datasets import Prefetcher
+
+    mesher = slam.mesher
+    cuda_sample.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt = slam.finalize()
+    torch.cuda.synchronize()
+    finalize_s = time.perf_counter() - t0
+    launches = dict(cuda_sample.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    raw = os.path.join(slam.output, "mesh", slam.mesh_name)
+    verts, faces, colors = check_mesh_file(raw)
+    cverts, cfaces, _ = check_mesh_file(slam.final_mesh)
+    if colors is None:
+        raise AssertionError(f"{raw}: no vertex colors")
+    # K1: one launch per volume chunk, one per chunk of vertex colors.
+    sdf_chunks = len(mesher.volume_chunks())
+    color_chunks = -(-len(verts) // mesher.color_batch)
+    expected = sdf_chunks + color_chunks
+    if (launches["plane_sample_fwd"] != expected
+            or launches["plane_sample_bwd"] or
+            launches["plane_sample_fwd_smem"]):
+        raise AssertionError(f"meshing launches {launches}, expected "
+                             f"{expected} of K1 and no other")
+    color_case = check_color_chunk(slam, verts, colors)
+    xs, ys, zs = mesher.grid_axes()
+    out = {"phase": "mesh", "checkpoint": ckpt, "mesh": raw,
+           "culled": slam.final_mesh, "grid": [len(xs), len(ys), len(zs)],
+           "n_verts": len(verts), "n_tris": len(faces),
+           "n_verts_culled": len(cverts), "n_tris_culled": len(cfaces),
+           "stages_s": mesher.stages,
+           "finalize_s": finalize_s, "finalize_steps_s":
+           slam.finalize_seconds, "launches": launches,
+           "expected_launches": expected, "sdf_chunks": sdf_chunks,
+           "color_chunks": color_chunks, "peak_mem_gb": peak_gb}
+    emit(out)
+    out["color_case"] = color_case
+
+    cfg = copy.deepcopy(slam.cfg)
+    cfg["meshing"]["eval_rec"] = True
+    steps = {}
+    t = time.perf_counter()
+    gt = slam.dataset.save_gt_mesh(
+        os.path.join(slam.output, "mesh", "gt_mesh.ply"),
+        resolution=GT_RESOLUTION, device=DEVICE)
+    steps["gt_mesh_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    frames = [(d, p) for _, (c, d, p) in
+              Prefetcher(slam.dataset, range(slam.n_img))]
+    steps["frames_s"] = time.perf_counter() - t
+    culled = {}
+    for name, path in (("rec", raw), ("gt", gt)):
+        t = time.perf_counter()
+        culled[name] = cull_mesh(path, cfg, frames, out_file=os.path.join(
+            slam.output, "mesh", f"{name}_eval_rec.ply"), device=DEVICE)
+        steps[f"cull_{name}_s"] = time.perf_counter() - t
+    gv, gf, _ = check_mesh_file(gt)
+    rv, rf, _ = check_mesh_file(culled["rec"])
+    _, cgf, _ = check_mesh_file(culled["gt"])
+    t = time.perf_counter()
+    metrics = calc_3d_metric(culled["rec"], culled["gt"])
+    steps["metric_3d_s"] = time.perf_counter() - t
+    rec = {"phase": "mesh_eval", "gt_resolution": GT_RESOLUTION,
+           "frames": slam.n_img, "gt_verts": len(gv), "gt_tris": len(gf),
+           "rec_eval_rec_tris": len(rf), "gt_eval_rec_tris": len(cgf),
+           **metrics, **steps}
+    emit(rec)
+    # The JAX package reached 0.32 cm at 120 frames on a TPU; a broken
+    # map or mesher is off by decimeters.
+    if not metrics["accuracy_cm"] <= 2.0:
+        raise AssertionError(f"accuracy {metrics['accuracy_cm']:.3f} cm "
+                             "exceeds 2 cm")
+    return {**out, **rec}
 
 
 def run_bench_scatter() -> dict:
@@ -556,7 +766,7 @@ def run_bench_exact() -> dict:
         raise AssertionError(f"exact lane ATE {rec['ate_rmse_cm']} cm")
 
     t0 = time.perf_counter()
-    path = slam.finalize(checkpoint=True)
+    path = slam.finalize(mesh=False, checkpoint=True)
     ckpt_s = time.perf_counter() - t0
     fresh = SLAMSystem(slam.cfg, output=slam.output, seed=SEED + 1,
                        device=DEVICE)
@@ -614,7 +824,10 @@ def main() -> int:
     cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
     cases = check_kernels(cfg, layouts(cfg))
-    slam = run_slam(cfg)
+    mesh_case = check_mesh_chunk(cfg, layouts(cfg)["sdf"])
+    slam, system = run_slam(cfg)
+    mesh = run_mesh(system)
+    del system
     bench = run_bench_scatter()
     run_bench_exact()
 
@@ -650,6 +863,7 @@ def main() -> int:
             "source": f"myslam_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c[k]["max_abs_err"] for c in cases
+                               + [mesh_case, mesh["color_case"]]
                                for k in checked[key] if k in c),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -659,6 +873,19 @@ def main() -> int:
             "ms_rays": head[key + "_rays"]["ms"],
             "ms_graph": rec["ms_graph"],
             "ms_rays_graph": head[key + "_rays"]["ms_graph"]})
+    # K1 at the meshing path's calls (one SDF volume chunk, one chunk of
+    # vertex colors) and its launches in phase mesh.
+    k1_mesh = mesh_case["fwd"]
+    k1_colors = mesh["color_case"]["fwd"]
+    kernels[0].update({
+        "ms_mesh": k1_mesh["ms"], "ms_mesh_graph": k1_mesh["ms_graph"],
+        "bound_ms_mesh": k1_mesh["bound_ms"],
+        "plain_ms_mesh": k1_mesh["plain_ms"],
+        "ms_mesh_colors": k1_colors["ms"],
+        "ms_mesh_colors_graph": k1_colors["ms_graph"],
+        "bound_ms_mesh_colors": k1_colors["bound_ms"],
+        "plain_ms_mesh_colors": k1_colors["plain_ms"],
+        "launches_mesh": mesh["launches"]["plane_sample_fwd"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ those of tracking each frame as it arrives.
 This is the single-device, non-pipelined mode of
 ``myslam_tpu.engine.scheduler.SLAMSystem``, with its loop timing
 (``frame_start_wall``, ``frame_times``, ``drain_wall``,
-``sync_after_frame``), the final checkpoint and ``resume``; no meshing,
+``sync_after_frame``), the final checkpoint and mesh, and ``resume``; no
 visualizer, supervision or parallel modes.
 """
 
@@ -36,11 +36,13 @@ from myslam_torch.models.planes import compute_bound, init_map_state, \
     make_layout
 from myslam_torch.ops import cuda_sample
 from myslam_torch.render.renderer import SceneGeometry
+from myslam_torch.tools.cull_mesh import cull_mesh
 from myslam_torch.tools.eval_ate import evaluate_run
-from myslam_torch.utils.datasets import PacketPrefetcher, build_packet, \
-    get_dataset
+from myslam_torch.utils.datasets import PacketPrefetcher, Prefetcher, \
+    build_packet, get_dataset
 from myslam_torch.utils.logger import latest_checkpoint, load_checkpoint, \
     save_checkpoint
+from myslam_torch.utils.mesher import Mesher
 
 
 class SLAMSystem:
@@ -50,7 +52,8 @@ class SLAMSystem:
     ``TorchDraws`` seeded with ``seed``.  ``frame_log`` collects one
     record per frame: host and device milliseconds of its tracking (per
     frame of its group) and mapping, and the losses.  Checkpoints go to
-    ``<output>/ckpts`` (``output`` defaults to ``data.output``).
+    ``<output>/ckpts`` (``output`` defaults to ``data.output``), the final
+    mesh and its culled copy to ``<output>/mesh``.
     """
 
     def __init__(self, cfg: dict, output: str | None = None, seed: int = 0,
@@ -86,6 +89,12 @@ class SLAMSystem:
             gen, self.sdf_layout, self.color_layout, get_model(cfg, gen),
             device=self.device)
         self.draws = TorchDraws(self.seed, self.device)
+        self.mesher = Mesher(cfg, self.scene, self.cam)
+        self.eval_rec = bool(cfg["meshing"].get("eval_rec", False))
+        # The culled final mesh, once finalize has written it, and the
+        # seconds of the last finalize's steps (checkpoint, mesh, cull).
+        self.final_mesh: str | None = None
+        self.finalize_seconds: dict = {}
 
         self.dataset = get_dataset(cfg)
         self.n_img = len(self.dataset)
@@ -226,9 +235,9 @@ class SLAMSystem:
     # -- main loop -------------------------------------------------------------
 
     def run(self, start_idx: int = 0, finalize: bool = True) -> None:
-        """The loop, then (by default) the final checkpoint.  Callers
-        that report the loop's metrics first (bench_torch.py) pass
-        ``finalize=False`` and call :meth:`finalize` themselves."""
+        """The loop, then (by default) the final checkpoint and mesh.
+        Callers that report the loop's metrics first (bench_torch.py)
+        pass ``finalize=False`` and call :meth:`finalize` themselves."""
         self.run_loop(start_idx)
         if finalize:
             self.finalize()
@@ -275,18 +284,51 @@ class SLAMSystem:
             os.path.join(self.output, "ckpts"))
         return 0 if path is None else load_checkpoint(path, self)
 
-    def finalize(self, mesh: bool = False,
+    @property
+    def mesh_name(self) -> str:
+        return ("final_mesh_eval_rec.ply" if self.eval_rec
+                else "final_mesh.ply")
+
+    def _extract_and_cull_mesh(self, path: str, upto: int) -> str:
+        """Extract the current mesh to ``path`` and cull it with frames
+        [0, upto) at their estimated poses; returns the culled copy."""
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        self.mesher.get_mesh(path, self.map_state, self.store)
+        t1 = time.perf_counter()
+        # The prefetch thread renders the frames while the device culls.
+        frames = ((d, p) for _, (c, d, p) in
+                  Prefetcher(self.dataset, range(upto)))
+        out = cull_mesh(path, self.cfg, frames,
+                        estimate_c2w_list=self.estimates[:upto],
+                        device=self.device)
+        self.finalize_seconds.update(mesh=t1 - t0,
+                                     cull=time.perf_counter() - t1)
+        return out
+
+    def finalize(self, mesh: bool = True,
                  checkpoint: bool = True) -> str | None:
         """Post-loop outputs: the final checkpoint,
-        ``<output>/ckpts/<n-1:05d>.npz``; returns its path."""
+        ``<output>/ckpts/<n-1:05d>.npz``, then the final mesh,
+        ``<output>/mesh/final_mesh.ply`` (``final_mesh_eval_rec.ply`` in
+        eval_rec mode) and its culled copy (``final_mesh``).  Returns the
+        checkpoint's path.  A meshing failure raises: the checkpoint is
+        already on disk by then, so the trajectory is safe.  (The JAX
+        package drops its compiled programs before meshing long runs,
+        ``jax.clear_caches``; eager PyTorch holds none.)"""
+        ckpt = None
+        t0 = time.perf_counter()
+        if checkpoint and self.n_img > 0:
+            ckpt = save_checkpoint(
+                os.path.join(self.output, "ckpts",
+                             f"{self.n_img - 1:05d}.npz"),
+                self, self.n_img - 1)
+        self.finalize_seconds = {"checkpoint": time.perf_counter() - t0}
         if mesh:
-            raise NotImplementedError(
-                "meshing is not ported yet (ROADMAP A11)")
-        if not checkpoint or self.n_img == 0:
-            return None
-        return save_checkpoint(
-            os.path.join(self.output, "ckpts", f"{self.n_img - 1:05d}.npz"),
-            self, self.n_img - 1)
+            self.final_mesh = self._extract_and_cull_mesh(
+                os.path.join(self.output, "mesh", self.mesh_name),
+                upto=self.n_img)
+        return ckpt
 
     @property
     def fps(self) -> float:

@@ -85,6 +85,43 @@ class Synthetic:
             self.poses[index], i, j, self.fx, self.fy, self.cx, self.cy,
             self.room, self.spheres)
 
+    def gt_sdf(self, pts: np.ndarray) -> np.ndarray:
+        """Exact signed distance of the scene surface at (..., 3) points:
+        positive in free (interior) space, negative inside walls/spheres.
+        The scene's surface = room-interior walls + solid spheres, so
+        sdf = min(distance-to-walls-from-inside, sphere sdfs)."""
+        pts = np.asarray(pts, np.float32)
+        lo = self.room[:, 0].astype(np.float32)
+        hi = self.room[:, 1].astype(np.float32)
+        d = np.minimum(pts - lo, hi - pts).min(axis=-1)
+        for sx, sy, sz, r in self.spheres:
+            d = np.minimum(
+                d, np.linalg.norm(
+                    pts - np.array([sx, sy, sz], np.float32), axis=-1) - r)
+        return d
+
+    def save_gt_mesh(self, path: str, resolution: float = 0.01,
+                     device=None) -> str:
+        """Ground-truth surface mesh from the analytic SDF (evaluated on
+        the host; marching tetrahedra at ``resolution`` on ``device``,
+        default the GPU): the reconstruction-eval oracle that real
+        datasets ship as files (reference README.md:99-118)."""
+        from myslam_torch.ops.marching import extract_isosurface
+        from myslam_torch.utils.ply import write_ply
+
+        pad = 0.05
+        axes = [np.arange(lo - pad, hi + pad + resolution, resolution,
+                          dtype=np.float32) for lo, hi in self.room]
+        g = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+        vol = self.gt_sdf(g.reshape(-1, 3)).reshape(g.shape[:-1])
+        del g
+        verts, faces = extract_isosurface(
+            vol, origin=[a[0] for a in axes], spacing=[resolution] * 3,
+            # sign convention: solid where sdf < 0, same as the map's
+            level=0.0, device=device)
+        write_ply(path, verts, faces)
+        return path
+
 
 def look_at(eye: np.ndarray, target: np.ndarray,
             up=np.array([0.0, 0.0, 1.0])) -> np.ndarray:
@@ -252,3 +289,12 @@ class PacketPrefetcher:
             if isinstance(item, Exception):
                 raise item
             yield item
+
+
+class Prefetcher(PacketPrefetcher):
+    """Background thread loading whole frames ``(idx, (color, depth,
+    c2w))`` ahead of the consumer (mesh culling reads from it)."""
+
+    def __init__(self, dataset, indices, depth: int = 4):
+        super().__init__(dataset, indices, lambda d, i: d.get_frame(i),
+                         depth)

@@ -8,7 +8,8 @@ on the CPU at a tiny size.
     ``zeros.at[cell].add(upd)`` on the same numpy inputs (float32 lines
     atol 1e-5; bfloat16 lines within 1e-2 of the largest value);
   * a checkpoint round trip on room_smoke.yaml cut to 2 frames with 2
-    mapping and 2 tracking iterations: atlases, decoder, poses, keyframe
+    mapping and 2 tracking iterations (``finalize`` also writes the mesh,
+    at 0.25 m, and its culled copy): atlases, decoder, poses, keyframe
     colors and the draw source bit for bit, depths within half their
     quantization step, the right start index, and interrupted writes
     ignored;
@@ -79,6 +80,7 @@ def _tiny_config(tmp_path):
         "data": {"n_frames": 2, "output": str(tmp_path / "out")},
         "tracking": {"iters": 2},
         "mapping": {"iters_first": 2, "iters": 2},
+        "meshing": {"resolution": 0.25},
     }
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -89,6 +91,7 @@ def test_checkpoint_round_trip(tmp_path, monkeypatch):
     from myslam_torch.engine.scheduler import SLAMSystem
     from myslam_torch.utils import logger
     from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+    from myslam_torch.utils.ply import read_ply
 
     cfg = load_config(_tiny_config(tmp_path), DEFAULT_CONFIG)
     slam = SLAMSystem(cfg, seed=3, device="cpu")
@@ -97,8 +100,10 @@ def test_checkpoint_round_trip(tmp_path, monkeypatch):
     assert logger.latest_checkpoint(ckpt_dir) is None
     path = slam.finalize(checkpoint=True)
     assert path == os.path.join(ckpt_dir, "00001.npz")
-    with pytest.raises(NotImplementedError, match="A11"):
-        slam.finalize(mesh=True)
+    mesh_dir = os.path.join(slam.output, "mesh")
+    assert slam.final_mesh == os.path.join(mesh_dir, "final_mesh_culled.ply")
+    _, faces, _ = read_ply(os.path.join(mesh_dir, "final_mesh.ply"))
+    assert len(faces) > 0 and len(read_ply(slam.final_mesh)[1]) > 0
 
     # A write cut before its rename leaves only a .tmp.npz, which is
     # never picked up, even with a later frame number.

@@ -16,7 +16,11 @@ largest value, ``chip_smoke.py``'s limit: runs merged in registers and
 vector atomics sum in another order than ``index_add_``.  K1 and K3
 walk the same point orders (and a run that crosses a tile's end), 1-4
 levels, c_dim 8/32/64 and both quad types, held against the plain
-version and each other at the same limit.
+version and each other at the same limit.  K1 also on the meshing
+path's grid-ordered volume chunks, at the same limit.  Marching, the
+depth rasterizer and the mesh culling's visibility run on the card and
+the CPU with the same rounding (elementwise operations, a stable sort, a
+minimum): held bit for bit.
 """
 
 import ctypes
@@ -346,3 +350,131 @@ def test_fwd_entries_refuse_a_bad_plan_or_table(dev):
         ctypes.cast(bad, ctypes.c_void_p), rows, 1, rows,
         smem_sample.SMEM_RUN, ctypes.addressof(info), stream) == 1
     torch.cuda.synchronize()
+
+
+# -- the meshing path ----------------------------------------------------------
+
+
+def _room(c_dim=32):
+    cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
+    cfg["model"]["c_dim"] = c_dim
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["first", "middle", "last"])
+def test_k1_on_grid_ordered_volume_chunks(dev, which):
+    """K1 at the meshing path's call: whole x-rows of the final SDF
+    volume of room.yaml (420,000 points, z fastest; the first chunk lies
+    past the bound's edge, the last is 2 rows), bf16 quad of the SDF
+    atlas."""
+    from myslam_torch.core.geometry import normalize_3d_coordinate
+    from myslam_torch.models.planes import compute_bound
+    from myslam_torch.utils.mesher import Mesher
+
+    cfg = _room()
+    layout = layouts(cfg)["sdf"]
+    mesher = Mesher(cfg, scene=None, cam=None)
+    chunks = mesher.volume_chunks()
+    assert len(chunks) == 113 and chunks[0] == (0, 4)
+    x0, x1 = {"first": chunks[0], "middle": chunks[56],
+              "last": chunks[-1]}[which]
+    bound = torch.tensor(compute_bound(cfg), dtype=torch.float32,
+                         device=dev)
+    p = normalize_3d_coordinate(mesher.chunk_points(x0, x1, dev), bound)
+    assert p.shape == ((x1 - x0) * 350 * 300, 3)
+    rng = np.random.default_rng(17)
+    atlas = torch.tensor(0.01 * rng.normal(size=(layout.total_rows, 32)),
+                         dtype=torch.float32, device=dev)
+    quad = pack_quad(atlas, layout).to(torch.bfloat16).contiguous()
+    before = cuda_sample.LAUNCHES["plane_sample_fwd"]
+    out = cuda_sample.plane_sample_fwd(quad, layout, p)
+    torch.cuda.synchronize()
+    assert cuda_sample.LAUNCHES["plane_sample_fwd"] == before + 1
+    _assert_within(out, cuda_sample.plane_sample_fwd_ref(quad, layout, p),
+                   f"K1 on volume chunk {which}")
+
+
+def _sphere_volume(n, r=0.6):
+    xs = np.linspace(-1, 1, n, dtype=np.float32)
+    g = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), -1)
+    return np.linalg.norm(g, axis=-1) - r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sphere", "random", "room_gt"])
+@pytest.mark.parametrize("slab_cells", [2_000_000, 3_000])
+def test_marching_on_the_card_matches_the_cpu(dev, case, slab_cells):
+    """Counts, vertices and faces bit for bit."""
+    from myslam_torch.ops.marching import extract_isosurface_device
+    from myslam_torch.utils.datasets import get_dataset
+
+    if case == "sphere":
+        vol = _sphere_volume(48)
+    elif case == "random":
+        vol = np.random.default_rng(18).normal(
+            size=(30, 21, 26)).astype(np.float32)
+    else:
+        ds = get_dataset(_room())
+        axes = [np.arange(lo - 0.05, hi + 0.1, 0.05, dtype=np.float32)
+                for lo, hi in ds.room]
+        g = np.stack(np.meshgrid(*axes, indexing="ij"), -1)
+        vol = ds.gt_sdf(g.reshape(-1, 3)).reshape(g.shape[:-1])
+    v_cpu, f_cpu = extract_isosurface_device(torch.tensor(vol),
+                                             slab_cells=slab_cells)
+    v, f = extract_isosurface_device(torch.tensor(vol, device=dev),
+                                     slab_cells=slab_cells)
+    assert v.device.type == dev.type and len(f_cpu) > 1000
+    assert torch.equal(v.cpu(), v_cpu) and torch.equal(f.cpu(), f_cpu)
+
+
+def _sphere_tris():
+    from myslam_torch.ops.marching import extract_isosurface
+    from myslam_torch.utils.meshmath import subdivide_to_edge
+
+    v, f = extract_isosurface(_sphere_volume(40), [-1, -1, -1],
+                              [2 / 39] * 3, device="cpu")
+    v, f = subdivide_to_edge(v, f, 0.03)
+    return v[f]
+
+
+@pytest.mark.cuda
+def test_rasterizer_on_the_card_matches_the_cpu(dev):
+    from myslam_torch.tools.eval_recon import _viewmatrix
+    from myslam_torch.utils.meshmath import make_depth_rasterizer
+
+    tris = _sphere_tris()
+    for origin in ([-0.6, 0.4, -2.2], [0.1, 0.2, 0.0]):  # outside, inside
+        c2w = _viewmatrix(np.array([0.3, -0.2, 1.0]),
+                          np.array([0.0, 1.0, 0.0]), np.array(origin))
+        w2c = np.linalg.inv(c2w)
+        args = (96, 128, 90.0, 90.0, 63.5, 47.5)
+        cpu = make_depth_rasterizer(*args, chunk=4096, device="cpu")(tris,
+                                                                     w2c)
+        card = make_depth_rasterizer(*args, chunk=4096, device=dev)(tris,
+                                                                    w2c)
+        assert (cpu > 0).mean() > 0.1
+        np.testing.assert_array_equal(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eval_rec", [False, True])
+def test_vertex_visibility_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                       eval_rec):
+    from myslam_torch.tools.cull_mesh import vertex_visibility
+    from myslam_torch.utils.datasets import get_dataset
+    from myslam_torch.utils.ply import read_ply
+
+    cfg = _room()
+    cfg["cam"].update(H=48, W=64, fx=40.0, fy=40.0, cx=31.5, cy=23.5)
+    cfg["data"]["n_frames"] = 20
+    cfg["meshing"]["eval_rec"] = eval_rec
+    ds = get_dataset(cfg)
+    path = str(tmp_path / "gt.ply")
+    ds.save_gt_mesh(path, resolution=0.08, device=dev)
+    verts = read_ply(path)[0]
+    frames = [ds.get_frame(i)[1:] for i in range(len(ds))]
+    cpu = vertex_visibility(verts, cfg, iter(frames), device="cpu")
+    card = vertex_visibility(verts, cfg, iter(frames), device=dev)
+    assert 0.05 < cpu.mean() < 0.95
+    np.testing.assert_array_equal(card, cpu)

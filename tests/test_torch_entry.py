@@ -1,7 +1,7 @@
 """The port's entry points and its package rules.
 
-  * ``run_torch.py --device cpu`` completes a tiny synthetic run and
-    reports a finite ATE;
+  * ``run_torch.py --device cpu`` completes a tiny synthetic run, reports
+    a finite ATE and writes the final mesh and its culled copy;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
   * no module of ``myslam_torch/``, nor ``chip_smoke.py``,
     ``run_torch.py`` or ``bench_torch.py``, imports JAX or the JAX
@@ -62,6 +62,8 @@ def _tiny_config(tmp_path):
         "tracking": {"pixels": 64, "iters": 4, "ignore_edge_H": 2,
                      "ignore_edge_W": 2},
         "mapping": {"pixels": 128, "iters_first": 20, "iters": 3},
+        # Coarse: room.yaml's 1 cm grid is 47 M points.
+        "meshing": {"resolution": 0.25},
     }
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -75,6 +77,9 @@ def test_run_torch_on_cpu_reports_finite_ate(tmp_path, capsys):
                           "--seed", "1"])
     assert out["device"] == "cpu" and out["frames"] == 6
     assert math.isfinite(out["ate_rmse_cm"])
+    assert out["final_mesh"] == str(
+        tmp_path / "out" / "mesh" / "final_mesh_culled.ply")
+    assert os.path.exists(tmp_path / "out" / "mesh" / "final_mesh.ply")
     assert capsys.readouterr().out.strip().endswith("}")
 
 
