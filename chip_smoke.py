@@ -49,7 +49,41 @@ Phases, one JSON line each:
   6. bench_exact  -- bench_torch.py's exact lane on room.yaml at full
                      width, cut to 13 frames (5 warmup): fps, ATE, K1/K2
                      launches, and its final checkpoint loaded back into a
-                     fresh SLAMSystem bit for bit.
+                     fresh SLAMSystem bit for bit;
+  7. slam_packed  -- the packed keyframe store (u8 color, u16 depth and a
+                     scale per slot on the card) on
+                     configs/Synthetic/room_tum_schedule.yaml as committed
+                     (keyframe_device: cpu; 480x640, 5000 pixels, 200
+                     tracking and 60 mapping iterations, 48+8 samples,
+                     every frame mapped and admitted) cut to 6 frames, so
+                     that frame 5 maps with joint poses over 5 keyframes:
+                     the store's bytes (exactly half the float16/float32
+                     store's at the same capacity) and dtypes, frame times,
+                     ATE, K1/K2 launches against the schedule's count, and
+                     its checkpoint resumed into a fresh packed SLAMSystem
+                     byte for byte;
+  8. slam_packed_again -- phase 7's run once more with the same seed:
+                     its largest per-frame distance from phase 7 is the
+                     card's run-to-run noise (K2's float atomics);
+  9. slam_host_staged -- the same run with keyframe_device: host_staged:
+                     the same fields, the line cache (lines, misses, slab
+                     bytes), one selection fetch per mapped frame, every
+                     frame's position within STORE_GATE_M of phase 7's
+                     (the two stores make the same draws), beside phase
+                     8's noise floor; then finalize(): the checkpoint
+                     resumed byte for byte, and the mesh, whose hull comes
+                     from the host-side depths, with its stage seconds
+                     and K1 launches;
+ 10. host_evict   -- the host-staged store's line cache under eviction:
+                     phase 9's run at 28 frames with the configured cache
+                     (31 lines, never evicts) and the smallest (23 lines:
+                     admissions evict, later windows upload again); the
+                     evicting run must miss, keep every bound line equal
+                     to its host slot, and stay within STORE_GATE_M per
+                     frame of the other.
+
+Phase 2 also holds K1 and K2 at the TUM schedule's shapes (280,000
+mapping and tracking points, bf16 quads).
 
 The build fails the run if ptxas reports a register spill in K1, K2 or
 K3.  Then the card's name and power limit, the kernels line (K1's, K2's
@@ -57,7 +91,10 @@ and K3's times at the mapping SDF sample on uniform points, and as
 ``ms_rays`` on the loop's ray-ordered points, each also as
 ``ms_graph`` / ``ms_rays_graph``; K1's at the volume chunk as
 ``ms_mesh`` / ``ms_mesh_graph`` and at the vertex-color chunk as
-``ms_mesh_colors`` / ``ms_mesh_colors_graph``), and last
+``ms_mesh_colors`` / ``ms_mesh_colors_graph``; K1's and K2's at the TUM
+schedule's mapping SDF sample as ``ms_tum*``, with their launches in
+phases 7, 9 and 10 as ``launches_slam_packed`` / ``_host_staged`` /
+``launches_host_evict``), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -100,6 +137,21 @@ TRACK_CASE = ("sdf", 2000, 0, ("bfloat16",))
 BENCH_POINTS = 160_000
 BENCH_ITERS = 10
 EXACT_WARMUP = 5
+# Phases 7-10: the TUM schedule's config and its cut.
+TUM_CONFIG = "configs/Synthetic/room_tum_schedule.yaml"
+STORE_FRAMES = 6
+# Largest per-frame distance between two runs of one seed that differ
+# only in where the keyframe imagery lives: about 3x the card's
+# run-to-run noise, which phase 8 measures and prints (PERF.md: 0.28 to
+# 1.52 mm between two packed runs).
+STORE_GATE_M = 0.005
+# Phase 10's cut: more keyframes than the smallest cache has lines.
+EVICT_FRAMES = 28
+# The TUM schedule's samples (5,000 rays at all 48+8 samples, bf16 quads;
+# color_topk 0): mapping's SDF and color samples, and tracking's.
+TUM_CASES = (("sdf", 5000, 0, ("bfloat16",)),
+             ("color", 5000, 0, ("bfloat16",)))
+TUM_TRACK_CASE = ("sdf", 5000, 0, ("bfloat16",))
 # The analytic GT mesh's resolution (meters) in phase mesh.
 GT_RESOLUTION = 0.01
 
@@ -302,12 +354,13 @@ def check_fwd(quad, layout, p_nor, rows, planes) -> tuple:
         rows["merged"], "rows_touched": rows["rows_touched"]}, out, ref
 
 
-def check_kernels(cfg, layouts) -> list[dict]:
+def check_kernels(cfg, layouts, cases=KERNEL_CASES,
+                  track_cases=(TRACK_CASE,), config=None) -> list[dict]:
     """K1 and K2 (with and without the quad gradient) against their plain
     versions, and K3 against its plain version and K1 on the SDF layout,
     each on uniform points and on the loop's own ray-ordered points; K2
-    also on tracking's.  Returns one record per (layout, points, dtype)
-    case."""
+    also on tracking's (``track_cases``).  Returns one record per
+    (layout, points, dtype) case."""
     import torch
 
     from myslam_torch.ops import cuda_sample
@@ -317,11 +370,11 @@ def check_kernels(cfg, layouts) -> list[dict]:
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    cases = []
-    for name, n_rays, keep, dtypes in KERNEL_CASES + (TRACK_CASE,):
+    records = []
+    for (name, n_rays, keep, dtypes), track in (
+            [(c, False) for c in cases] + [(c, True) for c in track_cases]):
         layout = layouts[name]
         C, L = layout.c_dim, layout.n_levels
-        track = (name, n_rays, keep, dtypes) == TRACK_CASE
         rays = loop_points(cfg, n_rays, dev, SEED, keep)
         n = rays.shape[0]
         atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
@@ -338,20 +391,23 @@ def check_kernels(cfg, layouts) -> list[dict]:
                 for order, pts in (("uniform", p_nor), ("rays", rays))}
         fwd_rows = {order: row_updates(layout, pts, cuda_sample.FWD_RUN)
                     for order, pts in (("uniform", p_nor), ("rays", rays))}
-        emit({"phase": "kernels_rows", "layout": name, "points": n,
+        emit({"phase": "kernels_rows", "config": config, "layout": name,
+              "points": n,
               "run": cuda_sample.BWD_RUN, **rows,
               "fwd_run": cuda_sample.FWD_RUN, "fwd": fwd_rows})
         for dtype in (getattr(torch, d) for d in dtypes):
             quad = pack_quad(atlas, layout).to(dtype).contiguous()
             rec = {"layout": name, "rows": layout.total_rows, "points": n,
                    "quad_dtype": str(dtype).replace("torch.", "")}
+            if config:
+                rec["config"] = config
             if track:
                 # Tracking's sample: frozen quads, K2 without the quad
                 # gradient (its record's p_grad_only).
                 rec["case"] = "tracking"
                 rec["bwd_rays"] = check_bwd(gbar_rays, quad, layout, rays,
                                             rows["rays"], planes)
-                cases.append(rec)
+                records.append(rec)
                 emit({"phase": "kernels", **rec})
                 continue
             for key, pts in (("fwd", p_nor), ("fwd_rays", rays)):
@@ -366,9 +422,9 @@ def check_kernels(cfg, layouts) -> list[dict]:
                                    rows["uniform"], planes)
             rec["bwd_rays"] = check_bwd(gbar_rays, quad, layout, rays,
                                         rows["rays"], planes)
-            cases.append(rec)
+            records.append(rec)
             emit({"phase": "kernels", **rec})
-    return cases
+    return records
 
 
 def check_mesh_chunk(cfg, layout) -> dict:
@@ -524,7 +580,12 @@ def check_launches(launches: dict, expected: int) -> None:
                              f"each of {SLAM_KERNELS} and no K3")
 
 
-def run_slam(cfg) -> tuple:
+def run_slam(cfg, phase: str = "slam",
+             config: str = "configs/Synthetic/room.yaml") -> tuple:
+    """SLAMSystem's loop on ``cfg`` with K1/K2 launches counted from zero
+    and checked per group against its iterations; the trajectory and ATE
+    (under 2 cm).  Emits the frames' lines; returns the phase record
+    (not emitted) and the system."""
     import numpy as np
     import torch
 
@@ -532,6 +593,7 @@ def run_slam(cfg) -> tuple:
     from myslam_torch.ops import cuda_sample
 
     slam = SLAMSystem(cfg, seed=SEED, device=DEVICE)
+    n_frames = slam.n_img
     t_iters = int(cfg["tracking"]["iters"])
     # Launches per group (its tracked frames and the mapped frame that
     # closes it), read after each mapped frame.
@@ -546,6 +608,7 @@ def run_slam(cfg) -> tuple:
                        "launches": dict(cuda_sample.LAUNCHES)})
 
     slam.on_map_done = count_group
+    torch.cuda.reset_peak_memory_stats()
     cuda_sample.reset_launches()
     t0 = time.perf_counter()
     slam.run_loop()
@@ -556,7 +619,7 @@ def run_slam(cfg) -> tuple:
     tracked = [r for r in slam.frame_log if "track_ms" in r]
     mapped = [r for r in slam.frame_log if "map_ms" in r]
     for r in slam.frame_log:
-        emit({"phase": "slam_frame", **r})
+        emit({"phase": phase + "_frame", **r})
     before = {name: 0 for name in SLAM_KERNELS}
     for g in groups:
         for name in SLAM_KERNELS:
@@ -572,30 +635,33 @@ def run_slam(cfg) -> tuple:
     losses = [v for r in slam.frame_log for k, v in r.items()
               if "loss" in k]
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("non-finite loss on the main path")
+        raise AssertionError(f"{phase}: non-finite loss on the main path")
     est = slam.estimates
-    if est.shape != (N_FRAMES, 4, 4) or not np.isfinite(est).all():
-        raise AssertionError("trajectory is not finite")
+    if est.shape != (n_frames, 4, 4) or not np.isfinite(est).all():
+        raise AssertionError(f"{phase}: trajectory is not finite")
     ate_cm = slam.ate()["absolute_translational_error.rmse"] * 100.0
     # The JAX package reaches well under 1 cm on this scene; a broken
     # tracker drifts by centimeters within a few frames.
     if not ate_cm < 2.0:
-        raise AssertionError(f"ATE {ate_cm:.3f} cm on {N_FRAMES} frames")
+        raise AssertionError(f"{phase}: ATE {ate_cm:.3f} cm on {n_frames} "
+                             "frames")
+    steady = [r["map_ms"] for r in mapped if r["frame"] > 0]
     out = {
-        "phase": "slam", "config": "configs/Synthetic/room.yaml",
-        "frames": N_FRAMES, "cam": [slam.cam.H, slam.cam.W],
+        "phase": phase, "config": config,
+        "frames": n_frames, "cam": [slam.cam.H, slam.cam.W],
+        "keyframe_device": slam.keyframe_device, "store": slam.store.mode,
         "sdf_rows": slam.sdf_layout.total_rows,
         "color_rows": slam.color_layout.total_rows,
         "tracked_frames": len(tracked), "mapped_frames": len(mapped),
         "track_ms_mean": float(np.mean([r["track_ms"] for r in tracked])),
-        "map_ms_steady_mean": float(np.mean(
-            [r["map_ms"] for r in mapped if r["frame"] > 0])),
+        "map_ms_steady_mean": float(np.mean(steady)),
+        "map_ms_steady": steady,
         "map_ms_frame0": mapped[0]["map_ms"],
+        "frame0_s": mapped[0]["map_ms"] / 1e3,
         "wall_s": wall, "ate_rmse_cm": ate_cm, "launches": launches,
         "expected_launches": expected, "calls": sample_calls(slam),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    emit(out)
     return out, slam
 
 
@@ -617,19 +683,14 @@ def check_mesh_file(path: str) -> tuple:
     return verts, faces, colors
 
 
-def run_mesh(slam) -> dict:
+def finalize_checked(slam) -> tuple:
     """The SLAM run's finalize(): checkpoint, final mesh and its culled
-    copy, with K1's launches counted from zero; then the analytic GT
-    mesh, both meshes culled in eval_rec mode with the run's frames (GT
-    poses, as tools/eval_synthetic_recon.py does) and the 3-D metrics."""
-    import copy
-
+    copy, with K1's launches counted from zero (one per volume chunk and
+    per chunk of vertex colors, no other kernel).  Returns the record,
+    the mesh's vertices and its colors."""
     import torch
 
     from myslam_torch.ops import cuda_sample
-    from myslam_torch.tools.cull_mesh import cull_mesh
-    from myslam_torch.tools.eval_recon import calc_3d_metric
-    from myslam_torch.utils.datasets import Prefetcher
 
     mesher = slam.mesher
     cuda_sample.reset_launches()
@@ -645,7 +706,6 @@ def run_mesh(slam) -> dict:
     cverts, cfaces, _ = check_mesh_file(slam.final_mesh)
     if colors is None:
         raise AssertionError(f"{raw}: no vertex colors")
-    # K1: one launch per volume chunk, one per chunk of vertex colors.
     sdf_chunks = len(mesher.volume_chunks())
     color_chunks = -(-len(verts) // mesher.color_batch)
     expected = sdf_chunks + color_chunks
@@ -654,9 +714,8 @@ def run_mesh(slam) -> dict:
             launches["plane_sample_fwd_smem"]):
         raise AssertionError(f"meshing launches {launches}, expected "
                              f"{expected} of K1 and no other")
-    color_case = check_color_chunk(slam, verts, colors)
     xs, ys, zs = mesher.grid_axes()
-    out = {"phase": "mesh", "checkpoint": ckpt, "mesh": raw,
+    out = {"checkpoint": ckpt, "mesh": raw,
            "culled": slam.final_mesh, "grid": [len(xs), len(ys), len(zs)],
            "n_verts": len(verts), "n_tris": len(faces),
            "n_verts_culled": len(cverts), "n_tris_culled": len(cfaces),
@@ -665,8 +724,25 @@ def run_mesh(slam) -> dict:
            slam.finalize_seconds, "launches": launches,
            "expected_launches": expected, "sdf_chunks": sdf_chunks,
            "color_chunks": color_chunks, "peak_mem_gb": peak_gb}
+    return out, verts, colors
+
+
+def run_mesh(slam) -> dict:
+    """The SLAM run's finalize() (finalize_checked), K1 on the first
+    chunk of vertex colors; then the analytic GT mesh, both meshes culled
+    in eval_rec mode with the run's frames (GT poses, as
+    tools/eval_synthetic_recon.py does) and the 3-D metrics."""
+    import copy
+
+    from myslam_torch.tools.cull_mesh import cull_mesh
+    from myslam_torch.tools.eval_recon import calc_3d_metric
+    from myslam_torch.utils.datasets import Prefetcher
+
+    out, verts, colors = finalize_checked(slam)
+    raw = out["mesh"]
+    out = {"phase": "mesh", **out}
     emit(out)
-    out["color_case"] = color_case
+    out["color_case"] = check_color_chunk(slam, verts, colors)
 
     cfg = copy.deepcopy(slam.cfg)
     cfg["meshing"]["eval_rec"] = True
@@ -791,6 +867,246 @@ def run_bench_exact() -> dict:
     return out
 
 
+def tum_config(keyframe_device: str | None, frames: int = STORE_FRAMES,
+               cache_lines: int | None = None) -> dict:
+    """TUM_CONFIG as committed, cut to ``frames`` frames; with
+    ``keyframe_device`` in place of its own (``cpu``), and
+    ``mapping.host_cache_lines`` if given."""
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    cfg = load_config(TUM_CONFIG, DEFAULT_CONFIG)
+    cfg["data"]["n_frames"] = frames
+    if keyframe_device is not None:
+        cfg["keyframe_device"] = keyframe_device
+    if cache_lines is not None:
+        cfg["mapping"]["host_cache_lines"] = cache_lines
+    cfg["data"]["output"] = os.path.join(
+        "output", "chip_smoke",
+        f"{cfg['keyframe_device']}_{frames}_{cache_lines}")
+    return cfg
+
+
+def store_record(slam) -> dict:
+    """The store's device bytes and dtypes; for the packed store also the
+    float16/float32 store's bytes at the same capacity (exactly twice)."""
+    st = slam.store
+    cap, H, W = st.capacity, slam.cam.H, slam.cam.W
+
+    def info(names):
+        return {n: {"dtype": str(getattr(st, n).dtype).replace("torch.", ""),
+                    "device": str(getattr(st, n).device),
+                    "shape": list(getattr(st, n).shape)} for n in names}
+
+    rec = {"capacity": cap, "store_imagery_bytes": st.imagery_bytes()}
+    if st.packed:
+        float_bytes = cap * H * W * (3 * 2 + 4)
+        rec.update(buffers=info(("colors", "depths_u16", "depth_inv_q")),
+                   inv_q_bytes=st.depth_inv_q.numel() * 4,
+                   float_store_imagery_bytes=float_bytes,
+                   ratio_to_float_store=st.imagery_bytes() / float_bytes)
+        if 2 * st.imagery_bytes() != float_bytes:
+            raise AssertionError(f"packed store: {rec}")
+    else:
+        rec.update(buffers=info(("colors_u8", "depths_u16", "depth_inv_q",
+                                 "cache_colors", "cache_depths",
+                                 "cache_inv_q")),
+                   host_pinned=bool(st.colors_u8.is_pinned()
+                                    and st.depths_u16.is_pinned()),
+                   host_store_bytes=cap * H * W * 5,
+                   cache_lines=st.cache_lines, cache_misses=st.cache_misses,
+                   cache_bytes=st.imagery_bytes(),
+                   selection_fetches=slam.selection_fetches)
+    return rec
+
+
+def check_resume(slam) -> dict:
+    """The newest checkpoint of ``slam`` resumed into a fresh SLAMSystem
+    of its config: the store's wire-format imagery, poses and records
+    byte for byte, and the map and trajectory bit for bit."""
+    import torch
+
+    from myslam_torch.engine.scheduler import SLAMSystem
+
+    fresh = SLAMSystem(slam.cfg, output=slam.output, seed=SEED + 1,
+                       device=DEVICE)
+    start = fresh.resume()
+    a, b = slam.store, fresh.store
+    n = a.count
+    same = {name: torch.equal(x[:n], y[:n]) for name, x, y in zip(
+        ("color_u8", "depth_u16", "inv_q"), a.wire(), b.wire())}
+    same.update({name: torch.equal(getattr(a, name)[:n],
+                                   getattr(b, name)[:n])
+                 for name in ("est_c2w", "gt_c2w")})
+    same["records"] = (b.count == n and b.frame_ids == a.frame_ids
+                       and b.has_depthless == a.has_depthless)
+    same["map"] = (torch.equal(slam.map_state.sdf_atlas,
+                               fresh.map_state.sdf_atlas)
+                   and torch.equal(slam.map_state.color_atlas,
+                                   fresh.map_state.color_atlas))
+    same["trajectory"] = torch.equal(slam.est, fresh.est)
+    if start != slam.n_img or not all(same.values()):
+        raise AssertionError(f"resume of {slam.store.mode}: start {start}, "
+                             f"{same}")
+    return {"resume_start": start, "byte_equal": same}
+
+
+def run_slam_packed() -> tuple:
+    """Phase slam_packed: the TUM schedule as committed (packed store),
+    then its checkpoint resumed.  Returns the record and the trajectory."""
+    import torch
+
+    cfg = tum_config(None)
+    rec, slam = run_slam(cfg, "slam_packed", TUM_CONFIG)
+    if slam.store.mode != "packed":
+        raise AssertionError(f"{TUM_CONFIG} built a {slam.store.mode} store")
+    t0 = time.perf_counter()
+    path = slam.finalize(mesh=False)
+    torch.cuda.synchronize()
+    rec = {**rec, **store_record(slam), "cut": f"{STORE_FRAMES} frames",
+           "checkpoint": path, "checkpoint_s": time.perf_counter() - t0,
+           **check_resume(slam)}
+    emit(rec)
+    return rec, slam.estimates
+
+
+def translation_diff(est, ref):
+    """Per-frame distance (m) between two trajectories' positions."""
+    import numpy as np
+
+    return np.linalg.norm(est[:, :3, 3] - ref[:, :3, 3], axis=-1)
+
+
+def run_packed_again(packed_est) -> float:
+    """Phase slam_packed_again: phase slam_packed's run once more, with
+    the same seed and draws.  On the card K2's float atomics sum in a
+    varying order, so the two runs part; their largest per-frame
+    distance is the noise floor that phase slam_host_staged is read
+    against.  Returns it."""
+    rec, slam = run_slam(tum_config(None), "slam_packed_again", TUM_CONFIG)
+    diff = translation_diff(slam.estimates, packed_est)
+    emit({**rec, "cut": f"{STORE_FRAMES} frames",
+          "max_translation_diff_vs_packed_m": float(diff.max()),
+          "translation_diff_vs_packed_m": diff.tolist()})
+    return float(diff.max())
+
+
+def run_slam_host_staged(packed_est, floor_m: float) -> dict:
+    """Phase slam_host_staged: the same run on the host-staged store,
+    against phase slam_packed's trajectory (within STORE_GATE_M per
+    frame; ``floor_m`` is two packed runs' distance); then finalize()
+    (checkpoint, mesh from the host-side depths, cull) and the checkpoint
+    resumed."""
+    from myslam_torch.utils import mesher
+
+    cfg = tum_config("host_staged")
+    rec, slam = run_slam(cfg, "slam_host_staged", TUM_CONFIG)
+    store = store_record(slam)
+    if slam.store.mode != "host_staged" or not store["host_pinned"]:
+        raise AssertionError(f"host_staged store: {store}")
+    store["bound_lines"] = check_cache(slam.store)
+    mapped = rec["mapped_frames"]
+    if slam.selection_fetches != mapped:
+        raise AssertionError(f"{slam.selection_fetches} selection fetches "
+                             f"for {mapped} mapped frames")
+    # The two stores make the same draws and read the same bytes, so the
+    # runs part only as two packed runs do.
+    diff = translation_diff(slam.estimates, packed_est)
+    if not diff.max() < STORE_GATE_M:
+        raise AssertionError(f"host_staged against packed: {diff} m, "
+                             f"two packed runs {floor_m} m")
+    hull_calls = []
+    backproject = mesher.backproject_keyframes
+
+    def counted(store_, cam, *a, **k):
+        hull_calls.append(store_.count)
+        return backproject(store_, cam, *a, **k)
+
+    mesher.backproject_keyframes = counted
+    try:
+        fin, _, _ = finalize_checked(slam)
+    finally:
+        mesher.backproject_keyframes = backproject
+    if hull_calls != [slam.store.count]:
+        raise AssertionError(f"host-side hull calls {hull_calls}")
+    rec = {**rec, **store, "cut": f"{STORE_FRAMES} frames",
+           "max_translation_diff_vs_packed_m": float(diff.max()),
+           "translation_diff_vs_packed_m": diff.tolist(),
+           "packed_noise_floor_m": floor_m, "gate_m": STORE_GATE_M,
+           "finalize": fin, **check_resume(slam)}
+    emit(rec)
+    return rec
+
+
+def check_cache(store) -> int:
+    """Every cache line bound to a slot holds that slot's host imagery
+    byte for byte, and the slot maps back to it; returns the count of
+    bound lines."""
+    import torch
+
+    bound = 0
+    for ln, s in enumerate(store.slot_of_line):
+        if s < 0:
+            continue
+        same = (store.line_of_slot[s] == ln
+                and torch.equal(store.cache_colors[ln].cpu(),
+                                store.colors_u8[s])
+                and torch.equal(store.cache_depths[ln].cpu(),
+                                store.depths_u16[s])
+                and float(store.cache_inv_q[ln]) == float(
+                    store.depth_inv_q[s]))
+        if not same:
+            raise AssertionError(f"cache line {ln} does not hold slot {s}")
+        bound += 1
+    return bound
+
+
+def run_host_evict(floor_m: float) -> dict:
+    """Phase host_evict: the host-staged store on TUM_CONFIG cut to
+    EVICT_FRAMES frames, two runs of one seed: the configured cache (one
+    line per slot and the scratch line: nothing is evicted) and the
+    smallest (``host_cache_lines: 1`` clamps to w_max + 1 lines, so
+    admissions evict and later windows upload evicted slots again while
+    the previous frame's kernels run).  The evicting run must miss, and
+    stay within STORE_GATE_M per frame of the other (``floor_m`` is two
+    packed runs' distance).  In both runs each bound line must hold its
+    slot's host imagery byte for byte."""
+    runs = {}
+    for name, lines in (("full", None), ("min", 1)):
+        rec, slam = run_slam(
+            tum_config("host_staged", EVICT_FRAMES, lines),
+            "host_evict_" + name, TUM_CONFIG)
+        runs[name] = {
+            "est": slam.estimates, "cache_lines": slam.store.cache_lines,
+            "cache_misses": slam.store.cache_misses,
+            "selection_fetches": slam.selection_fetches,
+            "bound_lines": check_cache(slam.store),
+            "mapped_frames": rec["mapped_frames"],
+            "w_max": slam.w_max, "launches": rec["launches"],
+            **{k: rec[k] for k in ("track_ms_mean", "map_ms_steady_mean",
+                                   "frame0_s", "ate_rmse_cm")}}
+        del slam
+    full, small = runs["full"], runs["min"]
+    gap = translation_diff(small["est"], full["est"])
+    if (small["cache_lines"] != small["w_max"] + 1
+            or not small["cache_misses"] > 0
+            or full["cache_misses"] != 0
+            or any(r["selection_fetches"] != r["mapped_frames"]
+                   for r in runs.values())):
+        raise AssertionError(f"host_evict: {runs}")
+    if not gap.max() < STORE_GATE_M:
+        raise AssertionError(f"host_evict: evicting run {gap} m from the "
+                             f"other; two packed runs {floor_m} m")
+    out = {"phase": "host_evict", "config": TUM_CONFIG,
+           "cut": f"{EVICT_FRAMES} frames",
+           "runs": {k: {kk: v for kk, v in r.items() if kk != "est"}
+                    for k, r in runs.items()},
+           "max_translation_diff_evicting_m": float(gap.max()),
+           "translation_diff_evicting_m": gap.tolist(),
+           "packed_noise_floor_m": floor_m, "gate_m": STORE_GATE_M}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -826,10 +1142,18 @@ def main() -> int:
     cases = check_kernels(cfg, layouts(cfg))
     mesh_case = check_mesh_chunk(cfg, layouts(cfg)["sdf"])
     slam, system = run_slam(cfg)
+    emit(slam)
     mesh = run_mesh(system)
     del system
     bench = run_bench_scatter()
     run_bench_exact()
+    tum = tum_config(None)
+    cases += check_kernels(tum, layouts(tum), TUM_CASES, (TUM_TRACK_CASE,),
+                           config=TUM_CONFIG)
+    packed, packed_est = run_slam_packed()
+    floor = run_packed_again(packed_est)
+    host = run_slam_host_staged(packed_est, floor)
+    evict = run_host_evict(floor)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -886,6 +1210,24 @@ def main() -> int:
         "bound_ms_mesh_colors": k1_colors["bound_ms"],
         "plain_ms_mesh_colors": k1_colors["plain_ms"],
         "launches_mesh": mesh["launches"]["plane_sample_fwd"]})
+    # K1 and K2 at the TUM schedule's mapping SDF sample (280,000 points,
+    # bf16 quad) and their launches in phases slam_packed and
+    # slam_host_staged; K1's in the host-staged run's mesh.
+    tum_head = next(c for c in cases if c.get("config") == TUM_CONFIG
+                    and c["layout"] == "sdf" and "fwd" in c)
+    for k, key in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        rec, rays = tum_head[key], tum_head[key + "_rays"]
+        k.update({
+            "ms_tum": rec["ms"], "ms_tum_graph": rec["ms_graph"],
+            "ms_tum_rays": rays["ms"], "ms_tum_rays_graph": rays["ms_graph"],
+            "bound_ms_tum": rec["bound_ms"], "plain_ms_tum": rec["plain_ms"],
+            "library_ms_tum": rec["library_ms"],
+            "launches_slam_packed": packed["launches"][k["name"]],
+            "launches_slam_host_staged": host["launches"][k["name"]],
+            "launches_host_evict": evict["runs"]["min"]["launches"][
+                k["name"]]})
+    kernels[0]["launches_mesh_host_staged"] = \
+        host["finalize"]["launches"]["plane_sample_fwd"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

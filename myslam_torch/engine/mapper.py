@@ -1,7 +1,9 @@
 """Mapping: windowed bundle adjustment of atlases, decoders and poses.
 
-The port of ``myslam_tpu.engine.mapper``'s single-device frame mapper,
-run eagerly.  The keyframe window is described by slot arrays:
+The port of ``myslam_tpu.engine.mapper``'s single-device frame mappers,
+run eagerly: ``make_frame_mapper`` over a device or packed keyframe
+store, ``make_window_frame_mapper`` over the host-staged store's device
+line cache.  The keyframe window is described by slot arrays:
 
   * the window has w_max slots; slot i holds an index into the keyframe
     store's imagery (the current frame sits in the scratch slot);
@@ -27,14 +29,19 @@ from myslam_torch.core.quaternion import cam_pose_to_matrix, \
 from myslam_torch.engine.camera import Camera
 from myslam_torch.engine.keyframes import KeyframeStore
 from myslam_torch.models.planes import MapState
-from myslam_torch.ops.pixel_gather import gather_rgb, gather_scalar
+from myslam_torch.ops.pixel_gather import gather_rgb, gather_scalar, \
+    gather_u16
 from myslam_torch.render.renderer import SceneGeometry, make_queries, \
     render_core
 
 
 def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
-                importance: bool = True):
-    """The per-iteration mapping loss and the optimizer factory."""
+                importance: bool = True, packed: bool = False):
+    """The per-iteration mapping loss and the optimizer factory.
+
+    ``packed``: the imagery is the wire format, color uint8 and depth
+    uint16 with a float32 scale per slot (``kf_inv_q``); only the sampled
+    pixels are dequantized."""
     m = cfg["mapping"]
     n_rays = int(m["pixels"])
     w_color, w_depth = float(m["w_color"]), float(m["w_depth"])
@@ -61,7 +68,7 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
         ])
 
     def loss_fn(ms: MapState, poses, pose_mask, slot_kf, n_slots,
-                kf_colors, kf_depths, draws):
+                kf_colors, kf_depths, kf_inv_q, draws):
         """One iteration's loss.  Draws, in order: pixel columns, pixel
         rows (``randint``), then the renderer's (build_z_vals_core)."""
         dev = poses.device
@@ -72,8 +79,14 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
         i = draws.randint((n_rays,), 0, cam.W).to(torch.float32)
         j = draws.randint((n_rays,), 0, cam.H).to(torch.float32)
         flat = kf_of_ray * HW + j.long() * cam.W + i.long()
-        px_depth = gather_scalar(kf_depths, flat)
-        px_color = gather_rgb(kf_colors, flat).to(torch.float32)
+        if packed:
+            px_depth = (gather_u16(kf_depths, flat).to(torch.float32)
+                        * kf_inv_q[kf_of_ray])
+            px_color = (gather_rgb(kf_colors, flat).to(torch.float32)
+                        * (1.0 / 255.0))
+        else:
+            px_depth = gather_scalar(kf_depths, flat)
+            px_color = gather_rgb(kf_colors, flat).to(torch.float32)
         rays_o, rays_d = rays_from_uv(i, j, c2ws[slot_of_ray], cam.fx,
                                       cam.fy, cam.cx, cam.cy)
         t_exit = ray_aabb_exit_t(rays_o.detach(), rays_d.detach(),
@@ -92,19 +105,55 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
     return loss_fn, make_optimizer
 
 
+def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
+                     c2ws, pose_mask, slot_kf, lines, n_slots, imagery,
+                     idx: int, draws, iters: int, lr_factor: float,
+                     joint_opt: bool):
+    """The iterations over one window, then the masked pose write-back.
+
+    ``c2ws`` (w_max, 4, 4) are the window's starting poses, ``slot_kf``
+    its global store slots (where the poses go back), ``lines`` the
+    imagery rows the rays read (``imagery``: colors, depths, inv_q).
+    Returns the losses (iters,) on the device."""
+    poses = matrix_to_cam_pose(c2ws).requires_grad_()
+    opt = make_optimizer(ms, poses, lr_factor)
+    losses = []
+    for _ in range(iters):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(ms, poses, pose_mask, lines, n_slots, *imagery,
+                       draws)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    with torch.no_grad():
+        # Keyframe poses of the optimized window slots; the trajectory
+        # only for the current frame, under joint_opt.
+        c2ws_out = cam_pose_to_matrix(poses)
+        old = store.est_c2w[slot_kf]
+        store.est_c2w[slot_kf] = torch.where(
+            pose_mask[:, None, None] > 0, c2ws_out, old)
+        if joint_opt:
+            est[idx] = c2ws_out[n_slots - 1]
+    return torch.stack(losses) if losses else torch.zeros(
+        (0,), device=est.device)
+
+
 def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                       selector, w_max: int, scratch_slot: int,
-                      importance: bool = True):
+                      importance: bool = True, packed: bool = False):
     """One mapped frame: scratch-imagery write, window selection, the
-    iterations, masked pose write-back and keyframe admission.
+    iterations, masked pose write-back and keyframe admission, over a
+    device store or (``packed``) a packed one.
 
     Returns map_frame(ms, store, est (n, 4, 4), color_u8 (H, W, 3),
     depth_u16 (H, W), inv_q, gt_c2w (4, 4), idx, draws, *, iters,
     lr_factor, joint_opt, admit) -> losses (iters,) on the device.
-    ``ms``, ``store`` and ``est`` are updated in place.  Draws: the
-    selector's, then each iteration's (``loss_fn``).
+    ``ms``, ``store`` and ``est`` are updated in place; the packed store
+    takes the packet's bytes as they are.  Draws: the selector's, then
+    each iteration's (``loss_fn``).
     """
-    loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance)
+    loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
+                                          packed)
 
     def map_frame(ms: MapState, store: KeyframeStore, est, color_u8,
                   depth_u16, inv_q: float, gt_c2w, idx: int, draws, *,
@@ -112,46 +161,81 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                   admit: bool):
         count = store.count
         with torch.no_grad():
-            store.colors[scratch_slot] = (
-                color_u8.to(torch.float32) * (1.0 / 255.0)).to(
-                    store.colors.dtype)
-            store.depths[scratch_slot] = depth_u16.to(torch.float32) * inv_q
+            if packed:
+                store.colors[scratch_slot] = color_u8
+                store.depths_u16[scratch_slot] = depth_u16
+                store.depth_inv_q[scratch_slot] = inv_q
+                cur_depth = (store.depths_u16[scratch_slot].to(
+                    torch.float32) * store.depth_inv_q[scratch_slot])
+                imagery = (store.colors, store.depths_u16,
+                           store.depth_inv_q)
+            else:
+                store.colors[scratch_slot] = (
+                    color_u8.to(torch.float32) * (1.0 / 255.0)).to(
+                        store.colors.dtype)
+                store.depths[scratch_slot] = (
+                    depth_u16.to(torch.float32) * inv_q)
+                cur_depth = store.depths[scratch_slot]
+                imagery = (store.colors, store.depths, None)
             cur_c2w = est[idx]
             slot_kf, n_slots, pose_mask = selector(
-                store.est_c2w, count, cur_c2w, store.depths[scratch_slot],
-                draws, joint_opt)
+                store.est_c2w, count, cur_c2w, cur_depth, draws, joint_opt)
             c2ws = store.est_c2w[slot_kf]
             is_cur = torch.arange(w_max, device=est.device) == n_slots - 1
             c2ws = torch.where(is_cur[:, None, None], cur_c2w[None], c2ws)
-        poses = matrix_to_cam_pose(c2ws).requires_grad_()
-        opt = make_optimizer(ms, poses, lr_factor)
-        losses = []
-        for _ in range(iters):
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(ms, poses, pose_mask, slot_kf, n_slots,
-                           store.colors, store.depths, draws)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-
+        losses = _optimize_window(
+            loss_fn, make_optimizer, ms, store, est, c2ws, pose_mask,
+            slot_kf, slot_kf, n_slots, imagery, idx, draws, iters,
+            lr_factor, joint_opt)
         with torch.no_grad():
-            # Keyframe poses of the optimized window slots; the
-            # trajectory only for the current frame, under joint_opt.
-            c2ws_out = cam_pose_to_matrix(poses)
-            old = store.est_c2w[slot_kf]
-            store.est_c2w[slot_kf] = torch.where(
-                pose_mask[:, None, None] > 0, c2ws_out, old)
-            if joint_opt:
-                est[idx] = c2ws_out[n_slots - 1]
             # Admission: the scratch slot's imagery and poses go to slot
             # ``count``; without admission the poses stay in the scratch.
             dst = count if admit else scratch_slot
             if admit:
-                store.colors[dst] = store.colors[scratch_slot]
-                store.depths[dst] = store.depths[scratch_slot]
+                for buf in imagery:
+                    if buf is not None:
+                        buf[dst] = buf[scratch_slot]
             store.est_c2w[dst] = est[idx]
             store.gt_c2w[dst] = gt_c2w
-        return torch.stack(losses) if losses else torch.zeros(
-            (0,), device=est.device)
+        return losses
 
     return map_frame
+
+
+def make_window_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
+                             w_max: int, importance: bool = True):
+    """One mapped frame over the host-staged store, whose window the
+    caller selected and staged into the store's line cache
+    (``KeyframeStore.stage_lines``): the iterations read the cache slab
+    through ``win_lines`` with the packed store's gather, the poses go
+    back to their global slots, and admission here is pose-only (the
+    imagery is admitted on the host).
+
+    Returns window_map(ms, store, est, slot_kf (w_max,), n_slots,
+    pose_mask (w_max,), win_lines (w_max,), gt_c2w, idx, draws, *, iters,
+    lr_factor, joint_opt, admit) -> losses (iters,) on the device.
+    Draws: each iteration's (``loss_fn``).
+    """
+    loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
+                                          packed=True)
+
+    def window_map(ms: MapState, store: KeyframeStore, est, slot_kf,
+                   n_slots, pose_mask, win_lines, gt_c2w, idx: int, draws,
+                   *, iters: int, lr_factor: float, joint_opt: bool,
+                   admit: bool):
+        with torch.no_grad():
+            c2ws = store.est_c2w[slot_kf]
+            is_cur = torch.arange(w_max, device=est.device) == n_slots - 1
+            c2ws = torch.where(is_cur[:, None, None], est[idx][None], c2ws)
+        losses = _optimize_window(
+            loss_fn, make_optimizer, ms, store, est, c2ws, pose_mask,
+            slot_kf, win_lines, n_slots,
+            (store.cache_colors, store.cache_depths, store.cache_inv_q),
+            idx, draws, iters, lr_factor, joint_opt)
+        if admit:
+            with torch.no_grad():
+                store.est_c2w[store.count] = est[idx]
+                store.gt_c2w[store.count] = gt_c2w
+        return losses
+
+    return window_map

@@ -11,8 +11,9 @@ group are buffered and tracked together at the next mapped frame
 those of tracking each frame as it arrives.
 
 This is the single-device, non-pipelined mode of
-``myslam_tpu.engine.scheduler.SLAMSystem``, with its loop timing
-(``frame_start_wall``, ``frame_times``, ``drain_wall``,
+``myslam_tpu.engine.scheduler.SLAMSystem``, with its keyframe store
+modes (``keyframe_device``: the float, packed and host-staged stores),
+its loop timing (``frame_start_wall``, ``frame_times``, ``drain_wall``,
 ``sync_after_frame``), the final checkpoint and mesh, and ``resume``; no
 visualizer, supervision or parallel modes.
 """
@@ -28,8 +29,10 @@ import torch
 from myslam_torch import resolve_device
 from myslam_torch.core.sampling import TorchDraws
 from myslam_torch.engine.camera import Camera
-from myslam_torch.engine.keyframes import KeyframeStore, make_window_selector
-from myslam_torch.engine.mapper import make_frame_mapper
+from myslam_torch.engine.keyframes import KeyframeStore, \
+    make_window_selector, store_mode
+from myslam_torch.engine.mapper import make_frame_mapper, \
+    make_window_frame_mapper
 from myslam_torch.engine.tracker import make_group_tracker
 from myslam_torch.models.config import get_model
 from myslam_torch.models.planes import compute_bound, init_map_state, \
@@ -109,22 +112,43 @@ class SLAMSystem:
                             + [self.n_img - 1]))
         n_keyframes = sum(1 for i in mapped if i % self.keyframe_every == 0)
         # Keyframes, plus one spare, plus the scratch slot (the last).
-        self.store = KeyframeStore(n_keyframes + 2, self.cam, self.device)
+        # keyframe_device picks the store: the float store, the packed
+        # wire format on the device (``cpu``/``packed``), or host imagery
+        # behind a device line cache (``host``/``host_staged``).
+        self.keyframe_device = str(
+            cfg.get("keyframe_device", "device")).lower()
+        self.store = KeyframeStore(n_keyframes + 2, self.cam, self.device,
+                                   mode=store_mode(self.keyframe_device))
         self.scratch_slot = self.store.capacity - 1
         self.w_max = self.window_size + 2  # picks + last two + current
+        if self.store.host_mode:
+            # The window and the scratch line must fit; more lines mean
+            # fewer re-uploads after eviction.
+            self.store.init_cache(max(
+                self.w_max + 1, min(int(m.get("host_cache_lines", 64)),
+                                    self.store.capacity + 1)))
+        # Host reads of the selected window (host-staged store only).
+        self.selection_fetches = 0
 
         self.group_tracker = make_group_tracker(cfg, self.scene, self.cam)
-        selector = make_window_selector(
+        self._selector = make_window_selector(
             self.cam, self.store.capacity, self.window_size, self.w_max,
             self.scratch_slot,
             method=m.get("keyframe_selection_method", "overlap"))
         # The depth-less sampling branch is built only when some frame in
         # the store has depth holes (see _map_frame).
-        self._mappers = {
-            imp: make_frame_mapper(cfg, self.scene, self.cam, selector,
-                                   self.w_max, self.scratch_slot,
-                                   importance=imp)
-            for imp in (False, True)}
+        if self.store.host_mode:
+            self._mappers = {
+                imp: make_window_frame_mapper(cfg, self.scene, self.cam,
+                                              self.w_max, importance=imp)
+                for imp in (False, True)}
+        else:
+            self._mappers = {
+                imp: make_frame_mapper(cfg, self.scene, self.cam,
+                                       self._selector, self.w_max,
+                                       self.scratch_slot, importance=imp,
+                                       packed=self.store.packed)
+                for imp in (False, True)}
         self._iters_first = int(m["iters_first"])
         self._iters = int(m["iters"])
         self._lr_first_factor = float(m["lr_first_factor"])
@@ -211,26 +235,70 @@ class SLAMSystem:
         needs_importance = pkt.has_depthless or any(
             self.store.has_depthless[:self.store.count])
         mapper = self._mappers[needs_importance]
+        iters = self._iters_first if first else self._iters
+        lr_factor = self._lr_first_factor if first else self._lr_factor
 
         def run():
+            if self.store.host_mode:
+                return self._map_frame_host(mapper, idx, pkt, iters,
+                                            lr_factor, joint_opt, admit)
             return mapper(
                 self.map_state, self.store, self.est,
-                self._to_dev(pkt.color_u8),
-                self._to_dev(pkt.depth_u16, np.float32), pkt.depth_inv_q,
-                self._to_dev(pkt.gt_c2w), idx, self.draws,
-                iters=self._iters_first if first else self._iters,
-                lr_factor=(self._lr_first_factor if first
-                           else self._lr_factor),
-                joint_opt=joint_opt, admit=admit)
+                self._to_dev(pkt.color_u8), self._to_dev(pkt.depth_u16),
+                pkt.depth_inv_q, self._to_dev(pkt.gt_c2w), idx, self.draws,
+                iters=iters, lr_factor=lr_factor, joint_opt=joint_opt,
+                admit=admit)
 
         losses, host_ms, ms = self._timed(run)
-        if admit:
+        if admit and not self.store.host_mode:
             self.store.note_admitted(pkt.has_depthless, idx)
         rec["map_host_ms"] = host_ms
         rec["map_ms"] = ms
         rec["map_iters"] = int(losses.shape[0])
         rec["map_loss_first"] = losses[0]
         rec["map_loss_last"] = losses[-1]
+
+    def _select_host(self, idx: int, joint_opt: bool):
+        """Window selection as its own step, for the host-staged store:
+        the fused mapper's draws in the same order, on the current depth
+        dequantized from the scratch line as the packed store does it.
+        The window's slots and its size come back to the host in one
+        fetch.  Returns (slot_kf, n_slots, pose_mask) on the device and
+        (slot_kf, n_slots) on the host."""
+        st = self.store
+        cur_depth = (st.cache_depths[st.scratch_line].to(torch.float32)
+                     * st.cache_inv_q[st.scratch_line])
+        slot_kf, n_slots, pose_mask = self._selector(
+            st.est_c2w, st.count, self.est[idx], cur_depth, self.draws,
+            joint_opt)
+        host = torch.cat([slot_kf, n_slots[None]]).cpu().numpy()
+        self.selection_fetches += 1
+        return (slot_kf, n_slots, pose_mask), (host[:-1], int(host[-1]))
+
+    def _map_frame_host(self, mapper, idx: int, pkt, iters: int,
+                        lr_factor: float, joint_opt: bool, admit: bool):
+        """A mapped frame over the host-staged store: the packet into the
+        scratch line, selection, the window's missing slots uploaded into
+        the line cache, the iterations over the cache slab, then the
+        imagery admitted on the host and bound to a line."""
+        st = self.store
+        scratch_line = st.stage_scratch(pkt.color_u8, pkt.depth_u16,
+                                        pkt.depth_inv_q)
+        (slot_kf, n_slots, pose_mask), (host_slots, n_host) = \
+            self._select_host(idx, joint_opt)
+        win_lines = np.full((self.w_max,), scratch_line, np.int64)
+        if n_host > 1:
+            win_lines[:n_host - 1] = st.stage_lines(host_slots[:n_host - 1])
+        losses = mapper(
+            self.map_state, st, self.est, slot_kf, n_slots, pose_mask,
+            self._to_dev(win_lines), self._to_dev(pkt.gt_c2w), idx,
+            self.draws, iters=iters, lr_factor=lr_factor,
+            joint_opt=joint_opt, admit=admit)
+        if admit:
+            pos = st.add_host(idx, pkt.color_u8, pkt.depth_u16,
+                              pkt.depth_inv_q, pkt.has_depthless)
+            st.bind_scratch(pos)
+        return losses
 
     # -- main loop -------------------------------------------------------------
 

@@ -1,11 +1,14 @@
 """Checkpoints: the full SLAM state in one npz, written crash-atomically.
 
-The port of ``myslam_tpu/utils/logger.py`` for the device keyframe store.
-A checkpoint holds the map atlases and decoder, both pose lists, the
-keyframe store (imagery quantized to uint8 color and uint16 depth, as in
-the JAX package's device-store branch) and the state of the run's draw
-source.  The field names are the JAX package's, so readers of either
-package's checkpoints (trajectory evaluation, replay) read both:
+The port of ``myslam_tpu/utils/logger.py``.  A checkpoint holds the map
+atlases and decoder, both pose lists, the keyframe store's imagery as
+uint8 color and uint16 depth with its dequantization scale, and the
+state of the run's draw source.  The float store is quantized for the
+file as the JAX package's device-store branch does it (one scale for the
+checkpoint); the packed and host-staged stores already hold that format
+and are written byte for byte, with a scale per keyframe.  The field
+names are the JAX package's, so readers of either package's checkpoints
+(trajectory evaluation, replay) read both:
 
   * ``decoder_leaves`` lists the decoder's arrays in the order
     ``jax.tree_util.tree_flatten`` gives the JAX decoder dict (keys
@@ -15,9 +18,6 @@ package's checkpoints (trajectory evaluation, replay) read both:
   * ``draws_generator_state`` holds the ``torch.Generator`` state of the
     draw source in place of JAX's ``rng_key``, which means nothing to
     torch.
-
-The packed and host-staged keyframe stores are not ported (ROADMAP A8);
-``save_checkpoint`` raises on them.
 """
 
 from __future__ import annotations
@@ -66,23 +66,25 @@ def save_checkpoint(path: str, slam, idx: int) -> str:
     truncated file where ``latest_checkpoint`` looks.
     """
     store = slam.store
-    if getattr(store, "packed", False) or getattr(store, "host_mode", False):
-        raise NotImplementedError(
-            "checkpoints of the packed and host-staged keyframe stores are "
-            "not ported (ROADMAP A8)")
     n = store.count
     ms = slam.map_state
-    with torch.no_grad():
-        colors_u8 = torch.clamp(torch.round(
-            store.colors[:n].to(torch.float32) * 255.0), 0, 255).to(
-                torch.uint8)
-        depths = store.depths[:n]
-        dmax = float(depths.max()) if n else 1.0
-        dq = 60000.0 / max(dmax, 1e-3)
-        # Valid (> 0) depths never quantize to 0, which means no depth.
-        depths_q = torch.where(
-            depths > 0, torch.clamp(torch.round(depths * dq), 1, 65535),
-            torch.zeros_like(depths))
+    if store.mode != "device":
+        colors_u8, depths_u16, inv_q = (b[:n].cpu().numpy()
+                                        for b in store.wire())
+    else:
+        with torch.no_grad():
+            colors_u8 = torch.clamp(torch.round(
+                store.colors[:n].to(torch.float32) * 255.0), 0, 255).to(
+                    torch.uint8).cpu().numpy()
+            depths = store.depths[:n]
+            dmax = float(depths.max()) if n else 1.0
+            dq = 60000.0 / max(dmax, 1e-3)
+            # Valid (> 0) depths never quantize to 0, which means no
+            # depth.
+            depths_u16 = torch.where(
+                depths > 0, torch.clamp(torch.round(depths * dq), 1, 65535),
+                torch.zeros_like(depths)).cpu().numpy().astype(np.uint16)
+        inv_q = np.float32(1.0 / dq)
     leaves = decoder_leaves(ms.decoder)
     packed_leaves = np.empty(len(leaves), dtype=object)
     packed_leaves[:] = leaves
@@ -97,9 +99,9 @@ def save_checkpoint(path: str, slam, idx: int) -> str:
         estimate_c2w_list=slam.estimates,
         gt_c2w_list=slam.gt_poses,
         keyframe_list=np.asarray(store.frame_ids[:n], np.int64),
-        kf_colors_u8=colors_u8.cpu().numpy(),
-        kf_depths_u16=depths_q.cpu().numpy().astype(np.uint16),
-        kf_depth_inv_q=np.float32(1.0 / dq),
+        kf_colors_u8=colors_u8,
+        kf_depths_u16=depths_u16,
+        kf_depth_inv_q=inv_q,
         kf_est_c2w=store.est_c2w[:n].cpu().numpy(),
         kf_gt_c2w=store.gt_c2w[:n].cpu().numpy(),
         kf_has_depthless=np.asarray(store.has_depthless[:n], bool),
@@ -117,8 +119,9 @@ def load_checkpoint(path: str, slam) -> int:
     same configuration; returns the first frame still to process.
 
     Atlases, decoder, pose lists, keyframe colors and the draw source
-    come back bit for bit; keyframe depths within half their
-    quantization step (``kf_depth_inv_q``).
+    come back bit for bit; the packed and host-staged stores' imagery
+    too, the float store's depths within half their quantization step
+    (``kf_depth_inv_q``).
     """
     with np.load(path, allow_pickle=True) as npz:
         data = dict(npz)
@@ -138,17 +141,22 @@ def load_checkpoint(path: str, slam) -> int:
     n = len(frame_ids)
     inv_q = np.broadcast_to(np.asarray(data["kf_depth_inv_q"], np.float32),
                             (n,))
+    colors_u8 = torch.from_numpy(data["kf_colors_u8"])
+    depths_u16 = torch.from_numpy(data["kf_depths_u16"])
     with torch.no_grad():
-        if n:
+        if store.mode != "device":
+            for buf, src in zip(store.wire(), (
+                    colors_u8, depths_u16, torch.from_numpy(inv_q.copy()))):
+                buf[:n].copy_(src)
+        elif n:
             # The mapper's own conversion, so colors come back bit for bit.
-            colors = torch.from_numpy(data["kf_colors_u8"]).to(dev).to(
-                torch.float32) * (1.0 / 255.0)
+            colors = colors_u8.to(dev).to(torch.float32) * (1.0 / 255.0)
             store.colors[:n] = colors.to(store.colors.dtype)
-            depths = (torch.from_numpy(data["kf_depths_u16"].astype(
-                np.float32)) * torch.from_numpy(inv_q.copy())[:, None, None])
+            depths = (depths_u16.to(torch.float32)
+                      * torch.from_numpy(inv_q.copy())[:, None, None])
             store.depths[:n] = depths.to(dev)
-            store.est_c2w[:n] = torch.from_numpy(data["kf_est_c2w"]).to(dev)
-            store.gt_c2w[:n] = torch.from_numpy(data["kf_gt_c2w"]).to(dev)
+        store.est_c2w[:n] = torch.from_numpy(data["kf_est_c2w"]).to(dev)
+        store.gt_c2w[:n] = torch.from_numpy(data["kf_gt_c2w"]).to(dev)
     store.count = n
     store.frame_ids = [int(i) for i in frame_ids]
     store.has_depthless[:n] = [bool(b) for b in data["kf_has_depthless"]]

@@ -1,12 +1,15 @@
 """Mesh extraction: scene bound hull, SDF volume query, isosurface, colors.
 
-The port of ``myslam_tpu/utils/mesher.py`` for the device-resident
-keyframe store:
+The port of ``myslam_tpu/utils/mesher.py``:
 
   * the observed-space bound: the convex hull (scipy/qhull, on the host)
-    of the corners of every coarse voxel that a back-projected keyframe
-    depth sample falls in, plus the camera centers, scaled 1.02; the
-    votes are counted on the device and the containment test runs there;
+    of a point set, scaled 1.02, with the containment test on the
+    device.  For the device and packed stores the points are the corners
+    of every coarse voxel that a back-projected keyframe depth sample
+    falls in, plus the camera centers, with the votes counted on the
+    device; for the host-staged store, whose depths are on the host, the
+    back-projected samples themselves (``backproject_keyframes``) after
+    a voxel-vote denoise (``denoise_observed_points``);
   * the SDF volume, queried in chunks of whole x-rows (about
     ``points_batch_size`` points each, z fastest) through
     ``render/renderer.py::query_sdf``: a CUDA tensor reaches kernel K1
@@ -14,10 +17,6 @@ keyframe store:
     bfloat16 (no gradients here);
   * the isosurface, by ``ops/marching.py`` on the volume's device;
   * vertex colors from the color decoder at the vertices (uint8).
-
-The host-staged store's point cloud (``backproject_keyframes``,
-``denoise_observed_points`` in the JAX package) is not ported: meshing
-such a store raises (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -39,10 +38,13 @@ from myslam_torch.utils.ply import write_ply
 
 def voxel_votes(c2ws: torch.Tensor, depths: torch.Tensor, count: int, cam,
                 stride: int, origin: torch.Tensor, inv_voxel: float,
-                dims: tuple) -> torch.Tensor:
+                dims: tuple, inv_q: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """Votes (nx*ny*nz,) int32 of a coarse voxel grid: for each of the
     first ``count`` store slots, its depth map back-projected on every
-    ``stride``-th pixel, one vote per valid sample in its voxel."""
+    ``stride``-th pixel, one vote per valid sample in its voxel.
+    ``depths`` float32, or uint16 with the per-slot scale ``inv_q``
+    (dequantized one slot at a time)."""
     dev = depths.device
     j, i = torch.meshgrid(
         torch.arange(0, cam.H, stride, dtype=torch.float32, device=dev),
@@ -52,6 +54,8 @@ def voxel_votes(c2ws: torch.Tensor, depths: torch.Tensor, count: int, cam,
     votes = torch.zeros((nx * ny * nz,), dtype=torch.int32, device=dev)
     for slot in range(count):
         depth = depths[slot, ::stride, ::stride]
+        if inv_q is not None:
+            depth = depth.to(torch.float32) * inv_q[slot]
         rays_o, rays_d = rays_from_uv(i, j, c2ws[slot], cam.fx, cam.fy,
                                       cam.cx, cam.cy)
         pts = rays_o + rays_d * depth[..., None]
@@ -72,16 +76,18 @@ def hull_points_device(store, cam, bound: np.ndarray,
     over the bound padded by 30 cm; the host reads the grid, keeps cells
     with >= min_votes and emits the 8 CORNERS of each occupied voxel (a
     superset hull of the contained points) plus the camera centers.
-    ``bound`` (3, 2) float32."""
+    ``bound`` (3, 2) float32.  A device or packed store."""
     stride, voxel, margin = 8, 0.1, 0.3
     lo = bound[:, 0] - margin
     hi = bound[:, 1] + margin
     dims = tuple(int(np.ceil((hi[a] - lo[a]) / voxel)) for a in range(3))
-    dev = store.depths.device
+    dev = store.est_c2w.device
+    depths, inv_q = ((store.depths_u16, store.depth_inv_q) if store.packed
+                     else (store.depths, None))
     votes = voxel_votes(
-        store.est_c2w, store.depths, store.count, cam, stride,
+        store.est_c2w, depths, store.count, cam, stride,
         torch.as_tensor(np.asarray(lo, np.float32)).to(dev),
-        float(np.float32(1.0 / voxel)), dims)
+        float(np.float32(1.0 / voxel)), dims, inv_q)
     v = votes.cpu().numpy().reshape(dims)
     occ = np.argwhere(v >= max(min_votes, 1))
     if len(occ) == 0:
@@ -91,6 +97,47 @@ def hull_points_device(store, cam, bound: np.ndarray,
     pts = lo[None, None, :] + corners * voxel
     cams = store.est_c2w[:store.count, :3, 3].cpu().numpy()
     return np.concatenate([pts.reshape(-1, 3), cams], axis=0)
+
+
+def backproject_keyframes(store, cam) -> np.ndarray:
+    """Point cloud of a host-staged store's keyframe depths, on every
+    8th pixel, then the camera centers: dequantized and back-projected in
+    numpy, where the depths are."""
+    stride = 8
+    n = store.count
+    est = store.est_c2w[:n].cpu().numpy()
+    d = (store.depths_u16[:n, ::stride, ::stride].numpy().astype(np.float32)
+         * store.depth_inv_q[:n, None, None].numpy())
+    j, i = np.meshgrid(
+        np.arange(0, cam.H, stride, dtype=np.float32),
+        np.arange(0, cam.W, stride, dtype=np.float32), indexing="ij")
+    dirs = np.stack([(i - cam.cx) / cam.fx, -(j - cam.cy) / cam.fy,
+                     -np.ones_like(i)], axis=-1)  # (h, w, 3)
+    pts = (np.einsum("khwj,kij->khwi", dirs[None] * d[..., None],
+                     est[:, :3, :3]) + est[:, None, None, :3, 3])
+    return np.concatenate([pts[d > 0], est[:, :3, 3]], axis=0)
+
+
+def denoise_observed_points(pts: np.ndarray, n_cams: int,
+                            min_votes: int = 3) -> np.ndarray:
+    """Voxel-vote outlier rejection before hull construction: only
+    points in 10 cm voxels holding >= min_votes samples survive (surfaces
+    are dense under the strided back-projection, isolated depth spikes
+    are not).  The trailing ``n_cams`` rows are the camera centers and
+    always survive."""
+    voxel = 0.1
+    if min_votes <= 1 or len(pts) <= n_cams:
+        return pts
+    surf = pts[:len(pts) - n_cams]
+    cams = pts[len(pts) - n_cams:]
+    keys = np.floor(surf / voxel).astype(np.int64)
+    # 3 x int21 packed into one int64 key for fast uniquing.
+    packed = ((keys[:, 0] & 0x1FFFFF) << 42 | (keys[:, 1] & 0x1FFFFF) << 21
+              | (keys[:, 2] & 0x1FFFFF))
+    _, inv, counts = np.unique(packed, return_inverse=True,
+                               return_counts=True)
+    keep = counts[inv] >= min_votes
+    return np.concatenate([surf[keep], cams], axis=0)
 
 
 class HullBound:
@@ -241,13 +288,15 @@ class Mesher:
 
         hull = None
         if store is not None and store.count > 0:
-            if getattr(store, "host_mode", False):
-                raise NotImplementedError(
-                    "meshing a host-staged keyframe store is not ported "
-                    "(ROADMAP A8)")
-            pts = hull_points_device(
-                store, self.cam, np.asarray(self.scene.bound, np.float32),
-                min_votes=self.bound_min_votes)
+            if store.host_mode:
+                pts = denoise_observed_points(
+                    backproject_keyframes(store, self.cam), store.count,
+                    min_votes=self.bound_min_votes)
+            else:
+                pts = hull_points_device(
+                    store, self.cam, np.asarray(self.scene.bound,
+                                                np.float32),
+                    min_votes=self.bound_min_votes)
             hull = HullBound(pts, self.mesh_bound_scale, device=dev)
         mark("hull")
         vol, (xs, ys, zs) = self.eval_sdf_volume(ms, hull)

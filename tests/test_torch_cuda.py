@@ -478,3 +478,78 @@ def test_vertex_visibility_on_the_card_matches_the_cpu(dev, tmp_path,
     card = vertex_visibility(verts, cfg, iter(frames), device=dev)
     assert 0.05 < cpu.mean() < 0.95
     np.testing.assert_array_equal(card, cpu)
+
+
+@pytest.mark.cuda
+def test_packed_gather_on_the_card_matches_the_cpu(dev):
+    """The packed store's pixel reads (uint8 color, uint16 depth read
+    through its int16 view, times the ray's keyframe scale), as the
+    mapper's loss makes them: equal bit for bit on the card and the CPU,
+    depths past 32767 included."""
+    from myslam_torch.ops.pixel_gather import gather_rgb, gather_u16
+
+    rng = np.random.default_rng(11)
+    cap, H, W, R = 5, 48, 64, 4000
+    colors = rng.integers(0, 256, (cap, H, W, 3), np.uint8)
+    depths = rng.integers(0, 65536, (cap, H, W), np.uint16)
+    inv_q = rng.uniform(1e-5, 1e-3, cap).astype(np.float32)
+    kf = rng.integers(0, cap, R)
+    flat = kf * H * W + rng.integers(0, H * W, R)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        c = torch.from_numpy(colors).to(d)
+        u16 = torch.from_numpy(depths).to(d)
+        q = torch.from_numpy(inv_q).to(d)
+        f = torch.from_numpy(flat).to(d)
+        k = torch.from_numpy(kf).to(d)
+        raw = gather_u16(u16, f)
+        out[d.type] = (raw.cpu(),
+                       (raw.to(torch.float32) * q[k]).cpu(),
+                       (gather_rgb(c, f).to(torch.float32)
+                        * (1.0 / 255.0)).cpu())
+    assert out["cuda"][0].dtype == torch.int32
+    np.testing.assert_array_equal(out["cpu"][0].numpy(),
+                                  depths.reshape(-1)[flat].astype(np.int64))
+    assert int(out["cpu"][0].max()) > 32767
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_stage_lines_on_the_card_uploads_the_evicted_slot(dev):
+    """A host-staged store on the card: pinned host imagery; a window that
+    evicts the least recently used line uploads exactly the host imagery
+    of its new slot; the scratch line binds to a free line."""
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.engine.keyframes import KeyframeStore
+
+    cam = Camera(H=48, W=64, fx=40.0, fy=40.0, cx=31.5, cy=23.5)
+    st = KeyframeStore(8, cam, dev, mode="host_staged")
+    assert st.colors_u8.is_pinned() and st.depths_u16.is_pinned()
+    st.init_cache(4)  # 3 usable lines + scratch
+    assert st.cache_depths.device.type == "cuda"
+    rng = np.random.default_rng(12)
+
+    def frame():
+        return (rng.integers(0, 256, (48, 64, 3), np.uint8),
+                rng.integers(0, 65536, (48, 64), np.uint16))
+
+    for s in range(5):
+        st.add_host(s, *frame(), 1e-3 * (s + 1))
+    st.stage_lines([0, 1, 2])
+    (ln,) = st.stage_lines([3])  # evicts slot 0's line
+    torch.cuda.synchronize()
+    assert st.cache_misses == 4 and st.line_of_slot[0] == -1
+    assert st.slot_of_line[ln] == 3
+    assert torch.equal(st.cache_colors[ln].cpu(), st.colors_u8[3])
+    assert torch.equal(st.cache_depths[ln].cpu(), st.depths_u16[3])
+    assert float(st.cache_inv_q[ln]) == float(st.depth_inv_q[3])
+    c, d = frame()
+    st.stage_scratch(torch.from_numpy(c), torch.from_numpy(d), 7e-3)
+    pos = st.add_host(99, c, d, 7e-3)
+    st.bind_scratch(pos)
+    ln = int(st.line_of_slot[pos])
+    torch.cuda.synchronize()
+    assert ln != st.scratch_line
+    np.testing.assert_array_equal(st.cache_colors[ln].cpu().numpy(), c)
+    np.testing.assert_array_equal(st.cache_depths[ln].cpu().numpy(), d)

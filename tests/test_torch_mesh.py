@@ -314,14 +314,6 @@ def test_vertex_colors_match_jax():
     assert len(np.unique(got.reshape(-1))) > 20
 
 
-def test_host_staged_store_is_not_meshed(tmp_path):
-    cfg = small_cfg()
-    m, _, ms, _ = pair_meshers(cfg, points_batch_size=2_000)
-    store = types.SimpleNamespace(count=1, host_mode=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        m.get_mesh(str(tmp_path / "m.ply"), ms, store)
-
-
 # -- the slice ---------------------------------------------------------------
 
 
