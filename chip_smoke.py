@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--replica-runs N]
 
 Phases, one JSON line each:
 
@@ -80,7 +80,43 @@ Phases, one JSON line each:
                      admissions evict, later windows upload again); the
                      evicting run must miss, keep every bound line equal
                      to its host slot, and stay within STORE_GATE_M per
-                     frame of the other.
+                     frame of the other;
+ 11. codec        -- the port's image codec on this host (utils/imageio.py,
+                     csrc/imagecodec.cpp): a full-width 680x1200 render's
+                     uint8 RGB and its uint16 depth through PNG byte for
+                     byte, and its RGB through the port's JPEG encoder and
+                     decoder at quality 95 (4:2:0) within the error that
+                     OpenCV's own q95 round trip costs on the same render
+                     (JPEG_Q95_MAX_ERR, JPEG_Q95_MEAN_ERR, measured by
+                     tests/test_torch_imageio.py); ms per decode and per
+                     encode; whether ``import cv2`` works here, and which
+                     of OpenCV, Pillow, torchvision and matplotlib are
+                     installed;
+ 12. replica_layout -- the synthetic room at 680x1200 exported by the
+                     port's exporter to the Replica layout (13 frames,
+                     depth holes), read back by the Replica reader under
+                     configs/Replica/replica.yaml's schedule (2,000 px and
+                     8 tracking iterations, 4,000 rays and 15 mapping
+                     iterations, 32+8 samples, exact color, eval_rec
+                     meshing at 1 cm) with room.yaml's bounds,
+                     ckpt_freq 4, mesh_freq 8: one run in this process
+                     (the reader's poses against Synthetic's, the
+                     importance branch taken, K1/K2 launches, ATE,
+                     metrics.jsonl), then ``run_torch.py --supervise``
+                     killed at frame 9 (MYSLAM_FAULT_KILL): one restart,
+                     resumed from 00008.npz at frame 9, the checkpoints,
+                     the periodic and final meshes, every frame once in
+                     metrics.jsonl, the heartbeat, eval_ate's CLI against
+                     the run's RMSE, and every frame within RESUME_GATE_M
+                     of the first run (``--replica-runs 2`` makes the
+                     uninterrupted run twice and prints their distance,
+                     the card's noise that RESUME_GATE_M is set from);
+ 13. tum_layout   -- the same room exported to the TUM layout at 480x640
+                     (6 frames, holes) under configs/TUM_RGBD/tum.yaml's
+                     schedule with freiburg1_desk.yaml's crop (384x512,
+                     edge 8) and a zero distortion: the rebased first
+                     pose, the association, the 368x496 camera, the
+                     importance branch, ATE and K1/K2 launches.
 
 Phase 2 also holds K1 and K2 at the TUM schedule's shapes (280,000
 mapping and tracking points, bf16 quads).
@@ -94,7 +130,8 @@ and K3's times at the mapping SDF sample on uniform points, and as
 ``ms_mesh_colors`` / ``ms_mesh_colors_graph``; K1's and K2's at the TUM
 schedule's mapping SDF sample as ``ms_tum*``, with their launches in
 phases 7, 9 and 10 as ``launches_slam_packed`` / ``_host_staged`` /
-``launches_host_evict``), and last
+``launches_host_evict``, and in phases 12 and 13 as
+``launches_replica_layout`` / ``launches_tum_layout``), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -106,6 +143,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -154,6 +192,30 @@ TUM_CASES = (("sdf", 5000, 0, ("bfloat16",)),
 TUM_TRACK_CASE = ("sdf", 5000, 0, ("bfloat16",))
 # The analytic GT mesh's resolution (meters) in phase mesh.
 GT_RESOLUTION = 0.01
+# Phase codec: what OpenCV's own JPEG round trip at quality 95 (4:2:0)
+# costs on frame 0 of room.yaml at 680x1200, largest and mean absolute
+# error in uint8 levels (tests/test_torch_imageio.py measures it).
+JPEG_Q95_MAX_ERR = 4
+JPEG_Q95_MEAN_ERR = 0.4652
+CODEC_REPS = 10
+# Phases 12 and 13: the scene exported (its camera and bounds), the
+# configs the runs inherit, and the cuts.
+REPLICA_SOURCE = "configs/Synthetic/room.yaml"
+REPLICA_CONFIG = "configs/Replica/replica.yaml"
+REPLICA_FRAMES = 13
+# MYSLAM_FAULT_KILL's frame: the run dies at frame 9's start, after the
+# checkpoint of frame 8 (ckpt_freq 4).
+KILL_FRAME = 9
+# Largest per-frame distance between the supervised (killed and resumed)
+# run and the uninterrupted one: 3x the distance between two
+# uninterrupted runs of one seed on the card (14.5 mm, PERF.md: K2's float
+# atomics, which the loose 8-iteration tracking of this schedule carries
+# from frame to frame; the resumed float store also restores its depths
+# only to half a quantization step).
+RESUME_GATE_M = 0.045
+TUM_LAYOUT_CONFIG = "configs/TUM_RGBD/tum.yaml"
+TUM_CROP_CONFIG = "configs/TUM_RGBD/freiburg1_desk.yaml"
+TUM_LAYOUT_FRAMES = 6
 
 
 def emit(obj) -> None:
@@ -544,13 +606,17 @@ def check_smem(quad, layout, p_nor, ref, k1_out, k1_rec) -> dict:
 
 
 def sample_calls(slam) -> list[dict]:
-    """The samples a finished run made, each launching K1 and K2 once:
-    per mapping iteration an SDF and a color sample whose backward makes
-    the quad gradient, per tracking iteration both on frozen quads."""
+    """The samples a finished run made: per mapping iteration an SDF and
+    a color sample whose backward makes the quad gradient, per tracking
+    iteration both on frozen quads, each launching K1 and K2 once; and
+    per mapping iteration of a frame whose window has depth holes the
+    importance branch's coarse SDF pass without a gradient (K1 only)."""
     cfg, scene = slam.cfg, slam.scene
     t_iters = int(cfg["tracking"]["iters"])
     tracked = t_iters * sum("track_ms" in r for r in slam.frame_log)
     mapped = sum(r.get("map_iters", 0) for r in slam.frame_log)
+    coarse = sum(r["map_iters"] for r in slam.frame_log
+                 if r.get("map_importance"))
     k = scene.color_topk if 0 < scene.color_topk < scene.n_samples \
         else scene.n_samples
     calls = []
@@ -560,32 +626,43 @@ def sample_calls(slam) -> list[dict]:
         for layout, per_ray in (("sdf", scene.n_samples), ("color", k)):
             calls.append({"step": step, "layout": layout,
                           "points": rays * per_ray, "quad_grad": quad_grad,
-                          "launches": launches})
+                          "launches": launches, "kernels": SLAM_KERNELS})
+    if coarse:
+        calls.append({"step": "mapping", "layout": "sdf_coarse",
+                      "points": int(cfg["mapping"]["pixels"])
+                      * scene.n_stratified, "quad_grad": False,
+                      "launches": coarse, "kernels": SLAM_KERNELS[:1]})
     return calls
 
 
-def expected_launches(slam) -> int:
-    """K1 (and K2) launches a finished run must have made: one SDF and
-    one color sample per tracking and per mapping iteration."""
-    return sum(c["launches"] for c in sample_calls(slam))
+def expected_launches(slam) -> dict:
+    """K1 and K2 launches a finished run must have made (sample_calls)."""
+    out = {name: 0 for name in SLAM_KERNELS}
+    for c in sample_calls(slam):
+        for name in c["kernels"]:
+            out[name] += c["launches"]
+    return out
 
 
-def check_launches(launches: dict, expected: int) -> None:
-    """K1 and K2 ran ``expected`` times each, K3 never (not on the SLAM
-    loop's path)."""
+def check_launches(launches: dict, expected: dict) -> None:
+    """K1 and K2 ran as often as ``expected`` says, K3 never (not on the
+    SLAM loop's path)."""
     got = {name: launches[name] for name in SLAM_KERNELS}
-    if (got != {name: expected for name in SLAM_KERNELS} or expected == 0
+    if (got != expected or not all(expected.values())
             or launches["plane_sample_fwd_smem"] != 0):
         raise AssertionError(f"launches {launches}, expected {expected} "
-                             f"each of {SLAM_KERNELS} and no K3")
+                             "and no K3")
 
 
 def run_slam(cfg, phase: str = "slam",
-             config: str = "configs/Synthetic/room.yaml") -> tuple:
+             config: str = "configs/Synthetic/room.yaml",
+             setup=None) -> tuple:
     """SLAMSystem's loop on ``cfg`` with K1/K2 launches counted from zero
-    and checked per group against its iterations; the trajectory and ATE
-    (under 2 cm).  Emits the frames' lines; returns the phase record
-    (not emitted) and the system."""
+    and checked per group against its iterations (a periodic mesh's K1
+    launches, one per volume chunk and per chunk of vertex colors, apart);
+    the trajectory and ATE (under 2 cm).  ``setup(slam)`` runs before the
+    loop.  Emits the frames' lines; returns the phase record (not
+    emitted) and the system."""
     import numpy as np
     import torch
 
@@ -593,21 +670,42 @@ def run_slam(cfg, phase: str = "slam",
     from myslam_torch.ops import cuda_sample
 
     slam = SLAMSystem(cfg, seed=SEED, device=DEVICE)
+    if setup is not None:
+        setup(slam)
     n_frames = slam.n_img
     t_iters = int(cfg["tracking"]["iters"])
     # Launches per group (its tracked frames and the mapped frame that
-    # closes it), read after each mapped frame.
-    groups = []
+    # closes it), read after each mapped frame; and each periodic mesh's.
+    groups, meshes = [], []
 
     def count_group(system, idx):
         recs = [r for r in system.frame_log
                 if r["frame"] > (groups[-1]["frame"] if groups else -1)]
         n_it = (t_iters * sum("track_loss_first" in r for r in recs)
                 + recs[-1]["map_iters"])
-        groups.append({"frame": idx, "iterations": n_it,
+        coarse = recs[-1]["map_iters"] if recs[-1]["map_importance"] else 0
+        groups.append({"frame": idx, "iterations": n_it, "coarse": coarse,
+                       "meshes": len(meshes),
                        "launches": dict(cuda_sample.LAUNCHES)})
 
+    extract = slam._extract_and_cull_mesh
+
+    def counted_mesh(path, *a, **k):
+        before = dict(cuda_sample.LAUNCHES)
+        out = extract(path, *a, **k)
+        verts, _, _ = check_mesh_file(path)
+        got = {n: cuda_sample.LAUNCHES[n] - before[n] for n in before}
+        want = (len(slam.mesher.volume_chunks())
+                + -(-len(verts) // slam.mesher.color_batch))
+        if got != {**got, "plane_sample_fwd": want, "plane_sample_bwd": 0,
+                   "plane_sample_fwd_smem": 0}:
+            raise AssertionError(f"{phase}: mesh launches {got}, expected "
+                                 f"{want} of K1 and no other")
+        meshes.append(got)
+        return out
+
     slam.on_map_done = count_group
+    slam._extract_and_cull_mesh = counted_mesh
     torch.cuda.reset_peak_memory_stats()
     cuda_sample.reset_launches()
     t0 = time.perf_counter()
@@ -620,18 +718,28 @@ def run_slam(cfg, phase: str = "slam",
     mapped = [r for r in slam.frame_log if "map_ms" in r]
     for r in slam.frame_log:
         emit({"phase": phase + "_frame", **r})
-    before = {name: 0 for name in SLAM_KERNELS}
+
+    def mesh_sum(calls):
+        return {n: sum(c[n] for c in calls) for n in launches}
+
+    before, seen = {name: 0 for name in SLAM_KERNELS}, 0
     for g in groups:
+        in_group = mesh_sum(meshes[seen:g["meshes"]])
         for name in SLAM_KERNELS:
-            grown = g["launches"][name] - before[name]
-            if grown != SAMPLES_PER_ITER * g["iterations"]:
+            grown = g["launches"][name] - before[name] - in_group[name]
+            want = SAMPLES_PER_ITER * g["iterations"] + (
+                g["coarse"] if name == "plane_sample_fwd" else 0)
+            if grown != want:
                 raise AssertionError(
                     f"{name}: {grown} launches in the group ending at frame "
                     f"{g['frame']}, expected {SAMPLES_PER_ITER} per each of "
-                    f"its {g['iterations']} iterations")
-        before = g["launches"]
+                    f"its {g['iterations']} iterations and (K1) one per "
+                    f"importance iteration ({g['coarse']})")
+        before, seen = g["launches"], g["meshes"]
     expected = expected_launches(slam)
-    check_launches(launches, expected)
+    mesh_launches = mesh_sum(meshes)
+    check_launches({n: launches[n] - mesh_launches[n] for n in launches},
+                   expected)
     losses = [v for r in slam.frame_log for k, v in r.items()
               if "loss" in k]
     if not all(math.isfinite(v) for v in losses):
@@ -659,7 +767,8 @@ def run_slam(cfg, phase: str = "slam",
         "map_ms_frame0": mapped[0]["map_ms"],
         "frame0_s": mapped[0]["map_ms"] / 1e3,
         "wall_s": wall, "ate_rmse_cm": ate_cm, "launches": launches,
-        "expected_launches": expected, "calls": sample_calls(slam),
+        "expected_launches": expected, "mesh_launches": meshes,
+        "calls": sample_calls(slam),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     return out, slam
@@ -1107,7 +1216,308 @@ def run_host_evict(floor_m: float) -> dict:
     return out
 
 
-def main() -> int:
+def run_codec() -> dict:
+    """Phase codec: PNG round trips byte for byte, the JPEG round trip
+    at quality 95 within OpenCV's error on the same render, decode and
+    encode times on full-width frames, and ``import cv2``'s outcome."""
+    import numpy as np
+
+    from myslam_torch.utils import imageio
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+    from myslam_torch.utils.datasets import Synthetic
+
+    t0 = time.perf_counter()
+    library = imageio.build()
+    build_s = time.perf_counter() - t0
+    cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
+    color, depth, _ = Synthetic(cfg).get_frame(0)
+    rgb = (np.clip(color, 0, 1) * 255).astype(np.uint8)
+    d16 = np.clip(depth * 6553.5, 0, 65535).astype(np.uint16)
+
+    def timed(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(CODEC_REPS):
+            out = fn()
+        return out, (time.perf_counter() - t) / CODEC_REPS * 1e3
+
+    png_rgb, ms_png_rgb_enc = timed(lambda: imageio.encode_png(rgb))
+    png_d16, ms_png_enc = timed(lambda: imageio.encode_png(d16))
+    back_rgb, ms_png_rgb_dec = timed(lambda: imageio.read_png(png_rgb))
+    back_d16, ms_png_dec = timed(lambda: imageio.read_png(png_d16))
+    if not (np.array_equal(back_rgb, rgb) and np.array_equal(back_d16, d16)
+            and back_d16.dtype == np.uint16):
+        raise AssertionError("codec: a PNG round trip is not byte-equal")
+    jpg, ms_jpeg_enc = timed(lambda: imageio.encode_jpeg(rgb, 95))
+    jpg98 = imageio.encode_jpeg(rgb, 98)
+    back, ms_jpeg_dec = timed(lambda: imageio.read_jpeg(jpg98))
+    back = imageio.read_jpeg(jpg)
+    err = np.abs(back.astype(np.int64) - rgb)
+    max_err, mean_err = int(err.max()), float(err.mean())
+    # Tolerance: what OpenCV's q95 4:2:0 round trip costs on this render.
+    if not (max_err <= JPEG_Q95_MAX_ERR and mean_err <= JPEG_Q95_MEAN_ERR):
+        raise AssertionError(
+            f"codec: JPEG q95 round trip max {max_err} / mean {mean_err:.4f}"
+            f" against OpenCV's {JPEG_Q95_MAX_ERR} / {JPEG_Q95_MEAN_ERR}")
+    # Which image libraries this machine has (the port uses none).
+    probe = ("import importlib.util, json; print(json.dumps({m: "
+             "importlib.util.find_spec(m) is not None for m in "
+             "('cv2', 'PIL', 'torchvision', 'matplotlib')}))")
+    libs = json.loads(subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True,
+        timeout=120, check=True).stdout)
+    cv2 = subprocess.run([sys.executable, "-c", "import cv2"],
+                         capture_output=True, text=True, timeout=120)
+    out = {"phase": "codec", "library": library, "build_s": build_s,
+           "frame": list(rgb.shape), "png_rgb_bytes": len(png_rgb),
+           "png_depth_bytes": len(png_d16), "png_byte_equal": True,
+           "jpeg_q95_bytes": len(jpg), "jpeg_q98_bytes": len(jpg98),
+           "jpeg_q95_max_err": max_err, "jpeg_q95_mean_err": mean_err,
+           "gate_max_err": JPEG_Q95_MAX_ERR,
+           "gate_mean_err": JPEG_Q95_MEAN_ERR,
+           "ms_jpeg_decode": ms_jpeg_dec, "ms_jpeg_encode": ms_jpeg_enc,
+           "ms_png_depth_decode": ms_png_dec,
+           "ms_png_depth_encode": ms_png_enc,
+           "ms_png_rgb_decode": ms_png_rgb_dec,
+           "ms_png_rgb_encode": ms_png_rgb_enc,
+           "import_cv2_rc": cv2.returncode,
+           "import_cv2": (cv2.stderr.strip().splitlines() or ["ok"])[-1],
+           "image_libraries": libs}
+    emit(out)
+    return out
+
+
+def write_config(path: str, cfg: dict) -> str:
+    """A YAML config file (the committed configs stay as they are)."""
+    import yaml
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def count_mappers(slam, calls: list) -> None:
+    """Record each mapped frame's importance branch (True: the depth-less
+    sampling branch, which depth holes require)."""
+    for imp, mapper in list(slam._mappers.items()):
+        def counted(*a, _imp=imp, _m=mapper, **k):
+            calls.append(_imp)
+            return _m(*a, **k)
+        slam._mappers[imp] = counted
+
+
+def check_metrics(path: str, frames: int) -> dict:
+    """metrics.jsonl holds each frame once, in order, with the JAX
+    package's keys (tracked frames: track_loss_first/best, track_ms;
+    mapped ones: map_loss, map_ms; all: frame_ms)."""
+    import numpy as np
+
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f]
+    got = [r["frame"] for r in recs if "frame" in r]
+    if got != list(range(frames)):
+        raise AssertionError(f"{path}: frames {got}")
+    for r in recs:
+        if "frame" not in r:
+            continue
+        keys = {"frame_ms"}
+        if r["frame"] > 0:
+            keys |= {"track_loss_first", "track_loss_best", "track_ms"}
+        if "map_iters" in r:
+            keys |= {"map_loss", "map_ms"}
+        if not keys <= set(r) or not all(
+                np.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"{path}: record {r}")
+    return {"records": len(recs), "frame_records": len(got),
+            "build_records": [r for r in recs if r.get("phase") == "build"]}
+
+
+def run_replica_layout(runs: int = 1, gate_m: float | None = None) -> dict:
+    """Phase replica_layout: the room exported to the Replica layout and
+    run from disk, ``runs`` times in this process (the first run's
+    trajectory is the reference; a second one reads the card's noise),
+    then under ``run_torch.py --supervise`` killed at KILL_FRAME and
+    resumed, within ``gate_m`` (None: not gated) of the first run."""
+    import numpy as np
+
+    from myslam_torch.tools.export_synthetic import export_replica
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+    from myslam_torch.utils.datasets import Synthetic
+    from myslam_torch.utils.logger import latest_checkpoint
+
+    root = os.path.abspath(os.path.join("output", "chip_smoke", "replica"))
+    shutil.rmtree(root, ignore_errors=True)  # a stale fault marker
+    room = load_config(REPLICA_SOURCE, DEFAULT_CONFIG)
+    room["data"]["n_frames"] = REPLICA_FRAMES
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    export_replica(room, data, holes=True)
+    export_s = time.perf_counter() - t0
+    runs_out, ests = [], []
+    for r in range(runs):
+        out_dir = os.path.join(root, f"run{r}")
+        cfg_path = write_config(os.path.join(root, f"run{r}.yaml"), {
+            "inherit_from": os.path.abspath(REPLICA_CONFIG),
+            "verbose": True,
+            "data": {"input_folder": data, "output": out_dir},
+            "mapping": {"bound": room["mapping"]["bound"],
+                        "marching_cubes_bound":
+                        room["mapping"]["marching_cubes_bound"],
+                        "ckpt_freq": 4, "mesh_freq": 8}})
+        cfg = load_config(cfg_path, DEFAULT_CONFIG)
+        branches = []
+        rec, slam = run_slam(cfg, f"replica_layout_run{r}", REPLICA_CONFIG,
+                             setup=lambda s: count_mappers(s, branches))
+        gt_err = float(np.abs(slam.gt_poses - np.stack(
+            Synthetic(room).poses)).max())
+        if slam.n_img != REPLICA_FRAMES or not gt_err <= 1e-5:
+            raise AssertionError(f"replica reader: {slam.n_img} frames, "
+                                 f"poses {gt_err} from Synthetic's")
+        if not (branches and all(branches)
+                and any(slam.store.has_depthless[:slam.store.count])):
+            raise AssertionError(f"replica: importance branch {branches}")
+        metrics = check_metrics(slam.metrics_path, slam.n_img)
+        if [b["frame"] for b in slam.bookkeeping] != [4, 8]:
+            raise AssertionError(f"replica: bookkeeping {slam.bookkeeping}")
+        ests.append(slam.estimates)
+        runs_out.append({**rec, "gt_pose_max_err": gt_err,
+                         "importance_branch": branches, **metrics,
+                         "bookkeeping": slam.bookkeeping,
+                         "compile_secs": slam.compile_secs})
+        del slam
+    noise = [float(translation_diff(e, ests[0]).max()) for e in ests[1:]]
+
+    # The supervised run, killed at KILL_FRAME's start and restarted.
+    sup_dir = os.path.join(root, "supervised")
+    sup_cfg = os.path.join(root, "run0.yaml")
+    env = dict(os.environ, MYSLAM_FAULT_KILL=str(KILL_FRAME))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "run_torch.py", sup_cfg, "--output", sup_dir,
+         "--seed", str(SEED), "--device", DEVICE, "--supervise"], env=env,
+        capture_output=True,
+        text=True, timeout=900)
+    sup_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    with open(os.path.join(root, "supervised.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    restarts = [ln for ln in lines if ln.startswith("SUPERVISOR: job")]
+    resumed = [ln for ln in lines if ln.startswith("Resumed from")]
+    want_ckpt = os.path.join(sup_dir, "ckpts", f"{KILL_FRAME - 1:05d}.npz")
+    result = json.loads(lines[-1]) if lines and lines[-1].startswith(
+        "{") else {}
+    if (proc.returncode != 0 or len(restarts) != 1
+            or resumed != [f"Resumed from {want_ckpt} at frame {KILL_FRAME}"]
+            or result.get("resumed_from") != KILL_FRAME):
+        raise AssertionError(
+            f"supervised run: rc {proc.returncode}, {restarts}, {resumed}, "
+            f"{result}; stderr {proc.stderr[-2000:]}")
+    files = {name: os.path.exists(os.path.join(sup_dir, name)) for name in (
+        "ckpts/00004.npz", "ckpts/00008.npz", "ckpts/00012.npz",
+        "mesh/00008_mesh.ply", "mesh/00008_mesh_culled.ply",
+        "mesh/final_mesh_eval_rec.ply", "mesh/final_mesh_eval_rec_culled.ply",
+        "HEARTBEAT", "FAULT_INJECTED")}
+    if not all(files.values()):
+        raise AssertionError(f"supervised run: files {files}")
+    for mesh in ("mesh/00008_mesh_culled.ply",
+                 "mesh/final_mesh_eval_rec_culled.ply"):
+        check_mesh_file(os.path.join(sup_dir, mesh))
+    sup_metrics = check_metrics(os.path.join(sup_dir, "metrics.jsonl"),
+                                REPLICA_FRAMES)
+    ate = subprocess.run(
+        [sys.executable, "-m", "myslam_torch.tools.eval_ate", sup_cfg,
+         "--output", sup_dir], capture_output=True, text=True, timeout=300)
+    printed = dict(ln.split(": ", 1) for ln in ate.stdout.splitlines()
+                   if ": " in ln)
+    rmse_cli = float(printed.get("absolute_translational_error.rmse", "nan"))
+    if ate.returncode or not abs(rmse_cli * 100.0
+                                 - result["ate_rmse_cm"]) <= 1e-9:
+        raise AssertionError(f"eval_ate: {ate.stdout} {ate.stderr[-1000:]}"
+                             f" against {result['ate_rmse_cm']} cm")
+    with np.load(latest_checkpoint(os.path.join(sup_dir, "ckpts")),
+                 allow_pickle=True) as ck:
+        sup_est = ck["estimate_c2w_list"]
+    gap = translation_diff(sup_est, ests[0])
+    if gate_m is not None and not gap.max() < gate_m:
+        raise AssertionError(f"supervised run {gap} m from the first run; "
+                             f"gate {gate_m} m")
+    out = {"phase": "replica_layout", "config": REPLICA_CONFIG,
+           "frames": REPLICA_FRAMES,
+           "cam": [room["cam"]["H"], room["cam"]["W"]],
+           "export_s": export_s, "runs": runs_out,
+           "noise_max_translation_diff_m": noise,
+           "supervised": {
+               "wall_s": sup_s, "restarts": restarts, "resumed": resumed,
+               "result": result, "files": files, **sup_metrics,
+               "eval_ate_rmse_cm": rmse_cli * 100.0,
+               "max_translation_diff_m": float(gap.max()),
+               "translation_diff_m": gap.tolist(), "gate_m": gate_m}}
+    emit(out)
+    return out
+
+
+def run_tum_layout() -> dict:
+    """Phase tum_layout: the room exported to the TUM layout at 480x640,
+    read back with freiburg1_desk.yaml's crop under tum.yaml's schedule,
+    the bound moved into the rebased frame."""
+    import numpy as np
+
+    from myslam_torch.tools.export_synthetic import export_tum, \
+        transform_bound, tum_world_transform
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    root = os.path.abspath(os.path.join("output", "chip_smoke", "tum"))
+    shutil.rmtree(root, ignore_errors=True)
+    src = load_config(TUM_CONFIG, DEFAULT_CONFIG)
+    src["data"]["n_frames"] = TUM_LAYOUT_FRAMES
+    desk = load_config(TUM_CROP_CONFIG, DEFAULT_CONFIG)
+    crop, edge = desk["cam"]["crop_size"], desk["cam"]["crop_edge"]
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    export_tum(src, data, holes=True)
+    export_s = time.perf_counter() - t0
+    A = tum_world_transform(src)
+    cam = {k: src["cam"][k] for k in ("H", "W", "fx", "fy", "cx", "cy")}
+    cfg_path = write_config(os.path.join(root, "tum_layout.yaml"), {
+        "inherit_from": os.path.abspath(TUM_LAYOUT_CONFIG),
+        "data": {"input_folder": data, "output": os.path.join(root, "out")},
+        "cam": {**cam, "crop_size": crop, "crop_edge": edge,
+                "distortion": [0.0] * 5},
+        "mapping": {
+            "bound": transform_bound(src["mapping"]["bound"], A),
+            "marching_cubes_bound": transform_bound(
+                src["mapping"]["marching_cubes_bound"], A)}})
+    cfg = load_config(cfg_path, DEFAULT_CONFIG)
+    branches = []
+    rec, slam = run_slam(cfg, "tum_layout", TUM_LAYOUT_CONFIG,
+                         setup=lambda s: count_mappers(s, branches))
+    first = slam.gt_poses[0]
+    checks = {
+        "first_pose": bool(np.array_equal(
+            first, np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32))),
+        "associated": slam.n_img == TUM_LAYOUT_FRAMES,
+        # 384x512 less the 8-pixel edge: 368x496
+        "camera": [slam.cam.H, slam.cam.W] == [crop[0] - 2 * edge,
+                                               crop[1] - 2 * edge],
+        "importance_branch": bool(branches) and all(branches),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"tum_layout: {checks}, {branches}")
+    out = {**rec, "export_s": export_s, "checks": checks,
+           "importance_branch": branches,
+           **check_metrics(slam.metrics_path, slam.n_img)}
+    emit(out)
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--replica-runs", type=int, default=1,
+                   help="uninterrupted runs in phase replica_layout")
+    args = p.parse_args(argv)
     try:
         import torch
     except ImportError as e:
@@ -1154,6 +1564,9 @@ def main() -> int:
     floor = run_packed_again(packed_est)
     host = run_slam_host_staged(packed_est, floor)
     evict = run_host_evict(floor)
+    run_codec()
+    replica = run_replica_layout(args.replica_runs, RESUME_GATE_M)
+    tum_layout = run_tum_layout()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1225,7 +1638,10 @@ def main() -> int:
             "launches_slam_packed": packed["launches"][k["name"]],
             "launches_slam_host_staged": host["launches"][k["name"]],
             "launches_host_evict": evict["runs"]["min"]["launches"][
-                k["name"]]})
+                k["name"]],
+            "launches_replica_layout": replica["runs"][0]["launches"][
+                k["name"]],
+            "launches_tum_layout": tum_layout["launches"][k["name"]]})
     kernels[0]["launches_mesh_host_staged"] = \
         host["finalize"]["launches"]["plane_sample_fwd"]
     emit({"kernels": kernels})

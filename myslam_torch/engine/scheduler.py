@@ -14,12 +14,18 @@ This is the single-device, non-pipelined mode of
 ``myslam_tpu.engine.scheduler.SLAMSystem``, with its keyframe store
 modes (``keyframe_device``: the float, packed and host-staged stores),
 its loop timing (``frame_start_wall``, ``frame_times``, ``drain_wall``,
-``sync_after_frame``), the final checkpoint and mesh, and ``resume``; no
-visualizer, supervision or parallel modes.
+``sync_after_frame``) and its bookkeeping: ``<output>/metrics.jsonl``,
+the periodic checkpoints and meshes (``mapping.ckpt_freq`` /
+``mesh_freq``), the final ones, the heartbeat that ``run_torch.py
+--supervise`` watches and the fault hook, and ``resume``.  On a CUDA
+device the prefetch thread stages each packet's uploads
+(``datasets.stage_packet``).  No visualizer or parallel modes.
 """
 
 from __future__ import annotations
 
+import json
+import math
 import os
 import time
 
@@ -41,8 +47,9 @@ from myslam_torch.ops import cuda_sample
 from myslam_torch.render.renderer import SceneGeometry
 from myslam_torch.tools.cull_mesh import cull_mesh
 from myslam_torch.tools.eval_ate import evaluate_run
+from myslam_torch.utils import imageio
 from myslam_torch.utils.datasets import PacketPrefetcher, Prefetcher, \
-    build_packet, get_dataset
+    build_packet, get_dataset, wait_staged
 from myslam_torch.utils.logger import latest_checkpoint, load_checkpoint, \
     save_checkpoint
 from myslam_torch.utils.mesher import Mesher
@@ -54,16 +61,22 @@ class SLAMSystem:
     Every random draw of tracking and mapping comes from one
     ``TorchDraws`` seeded with ``seed``.  ``frame_log`` collects one
     record per frame: host and device milliseconds of its tracking (per
-    frame of its group) and mapping, and the losses.  Checkpoints go to
-    ``<output>/ckpts`` (``output`` defaults to ``data.output``), the final
-    mesh and its culled copy to ``<output>/mesh``.
+    frame of its group) and mapping, the losses, and the frame's wall
+    time; each record is also a line of ``<output>/metrics.jsonl``.
+    Checkpoints go to ``<output>/ckpts`` (``output`` defaults to
+    ``data.output``), meshes and their culled copies to
+    ``<output>/mesh``.  ``input_folder`` overrides ``data.input_folder``
+    for the datasets read from disk.
     """
 
-    def __init__(self, cfg: dict, output: str | None = None, seed: int = 0,
-                 device=None):
+    def __init__(self, cfg: dict, input_folder: str | None = None,
+                 output: str | None = None, seed: int = 0, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.output = output or cfg["data"]["output"]
+        os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
+        os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
+        self.verbose = bool(cfg.get("verbose", False))
         self.seed = int(seed)
         self.cam = Camera.from_cfg(cfg)
         self.bound = compute_bound(cfg)
@@ -99,9 +112,15 @@ class SLAMSystem:
         self.final_mesh: str | None = None
         self.finalize_seconds: dict = {}
 
-        self.dataset = get_dataset(cfg)
+        self.dataset = get_dataset(cfg, input_folder)
         self.n_img = len(self.dataset)
         m = cfg["mapping"]
+        self.ckpt_freq = int(m["ckpt_freq"])
+        self.mesh_freq = int(m["mesh_freq"])
+        self.no_log_on_first_frame = bool(
+            m.get("no_log_on_first_frame", True))
+        self.no_mesh_on_first_frame = bool(
+            m.get("no_mesh_on_first_frame", True))
         self.every_frame = int(m["every_frame"])
         self.keyframe_every = int(m["keyframe_every"])
         self.window_size = int(m["mapping_window_size"])
@@ -111,13 +130,19 @@ class SLAMSystem:
         mapped = sorted(set(list(range(0, self.n_img, self.every_frame))
                             + [self.n_img - 1]))
         n_keyframes = sum(1 for i in mapped if i % self.keyframe_every == 0)
-        # Keyframes, plus one spare, plus the scratch slot (the last).
+        # Keyframes, plus one spare, plus the scratch slot (the last),
+        # padded as the JAX package pads it: to the smallest multiple
+        # that makes the flattened imagery whole 128-lane rows (1 at
+        # 680x1200 and 480x640, 8 at ScanNet's 460x620 crop).  The window
+        # selector draws over the capacity, so the pad keeps its draws.
+        row_pad = 128 // math.gcd(self.cam.H * self.cam.W, 128)
+        capacity = -(-(n_keyframes + 2) // row_pad) * row_pad
         # keyframe_device picks the store: the float store, the packed
         # wire format on the device (``cpu``/``packed``), or host imagery
         # behind a device line cache (``host``/``host_staged``).
         self.keyframe_device = str(
             cfg.get("keyframe_device", "device")).lower()
-        self.store = KeyframeStore(n_keyframes + 2, self.cam, self.device,
+        self.store = KeyframeStore(capacity, self.cam, self.device,
                                    mode=store_mode(self.keyframe_device))
         self.scratch_slot = self.store.capacity - 1
         self.w_max = self.window_size + 2  # picks + last two + current
@@ -171,13 +196,24 @@ class SLAMSystem:
         # Benchmarking: drain the device after this frame, so a window
         # starting at the next frame holds no backlog of frame 0's work.
         self.sync_after_frame: int | None = None
-        self._build_seconds_at_start = cuda_sample.BUILD_SECONDS
+        self._build_seconds_at_start = self._build_seconds()
+        # metrics.jsonl: records wait here, device scalars and all, and
+        # are read back in one batch at a flush (every 200 records,
+        # before each periodic checkpoint, after the drain).
+        self.metrics_path = os.path.join(self.output, "metrics.jsonl")
+        self.metrics_flush_every = 200
+        self._pending_metrics: list[dict] = []
+        self._compile_logged = 0.0
+        # Seconds of each periodic checkpoint and mesh, by frame.
+        self.bookkeeping: list[dict] = []
 
     # -- helpers -------------------------------------------------------------
 
-    def _to_dev(self, a: np.ndarray, dtype=None) -> torch.Tensor:
-        t = torch.as_tensor(a if dtype is None else a.astype(dtype))
-        return t.to(self.device)
+    def _to_dev(self, a, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """A host array or tensor on the device (a no-op for a tensor
+        already there, such as a staged packet's), cast to ``dtype``."""
+        t = torch.as_tensor(a).to(self.device)
+        return t if dtype is None else t.to(dtype)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -204,21 +240,23 @@ class SLAMSystem:
 
     # -- tracking and mapping --------------------------------------------------
 
-    def _flush_track_buf(self) -> None:
-        """Track the buffered frames of one group against the frozen map."""
+    def _flush_track_buf(self, open_rec: dict | None = None) -> None:
+        """Track the buffered frames of one group against the frozen map,
+        then log their records, except ``open_rec``: the current frame's,
+        which its own iteration finishes and logs."""
         buf, self._track_buf = self._track_buf, []
         if not buf:
             return
         idx0 = buf[0][0]
 
         def stack(name, dtype=None):
-            return self._to_dev(
-                np.stack([getattr(p, name) for _, p, _ in buf]), dtype)
+            return torch.stack([self._to_dev(getattr(p, name), dtype)
+                                for _, p, _ in buf])
 
         def run():
             return self.group_tracker(
                 self.map_state, self.est, idx0,
-                stack("px_i", np.int64), stack("px_j", np.int64),
+                stack("px_i", torch.int64), stack("px_j", torch.int64),
                 stack("px_color"), stack("px_depth"), self.draws)
 
         (_, loss_first, loss_best), host_ms, ms = self._timed(run)
@@ -227,6 +265,8 @@ class SLAMSystem:
             rec["track_ms"] = ms / len(buf)
             rec["track_loss_first"] = loss_first[g]
             rec["track_loss_best"] = loss_best[g]
+            if rec is not open_rec:
+                self._log_metrics(rec)
 
     def _map_frame(self, idx: int, pkt, rec: dict) -> None:
         first = idx == 0
@@ -255,8 +295,10 @@ class SLAMSystem:
         rec["map_host_ms"] = host_ms
         rec["map_ms"] = ms
         rec["map_iters"] = int(losses.shape[0])
+        rec["map_importance"] = bool(needs_importance)
         rec["map_loss_first"] = losses[0]
         rec["map_loss_last"] = losses[-1]
+        rec["map_loss"] = losses[-1]
 
     def _select_host(self, idx: int, joint_opt: bool):
         """Window selection as its own step, for the host-staged store:
@@ -295,10 +337,112 @@ class SLAMSystem:
             self.draws, iters=iters, lr_factor=lr_factor,
             joint_opt=joint_opt, admit=admit)
         if admit:
-            pos = st.add_host(idx, pkt.color_u8, pkt.depth_u16,
-                              pkt.depth_inv_q, pkt.has_depthless)
+            # The host store takes the packet's numpy imagery: a staged
+            # packet's device copy is not read back.
+            color_u8, depth_u16 = pkt.imagery_host()
+            pos = st.add_host(idx, color_u8, depth_u16, pkt.depth_inv_q,
+                              pkt.has_depthless)
             st.bind_scratch(pos)
         return losses
+
+    # -- bookkeeping -----------------------------------------------------------
+
+    def _log_metrics(self, record: dict) -> None:
+        """Queue a record for metrics.jsonl; its device scalars are read
+        at the next flush."""
+        self._pending_metrics.append(record)
+        if len(self._pending_metrics) >= self.metrics_flush_every:
+            self._flush_metrics()
+
+    def _flush_metrics(self) -> None:
+        """Append the queued records to metrics.jsonl, their device
+        scalars read back in one copy; first a ``build`` record when this
+        system has compiled the kernels or the codec since the last
+        one."""
+        lines = []
+        built = self.compile_secs - self._compile_logged
+        if built > 0:
+            lines.append({"phase": "build", "compile_secs": built})
+            self._compile_logged += built
+        pending, self._pending_metrics = self._pending_metrics, []
+        keys = [(rec, k) for rec in pending for k, v in rec.items()
+                if isinstance(v, torch.Tensor)]
+        if keys:
+            values = torch.stack([rec[k].detach().reshape(()).float()
+                                  for rec, k in keys]).cpu().tolist()
+            for (rec, k), v in zip(keys, values):
+                rec[k] = v
+        lines += pending
+        if lines:
+            with open(self.metrics_path, "a") as f:
+                f.writelines(json.dumps(r) + "\n" for r in lines)
+
+    def _reset_metrics(self, start_idx: int) -> None:
+        """Keep of metrics.jsonl only the frames before ``start_idx`` (a
+        resumed run logs the rest again; a fresh one starts empty), so
+        that after a restart every frame is in the file once."""
+        kept = []
+        if start_idx > 0 and os.path.exists(self.metrics_path):
+            with open(self.metrics_path) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if rec.get("frame", -1) < start_idx:
+                        kept.append(line)
+        with open(self.metrics_path, "w") as f:
+            f.writelines(kept)
+
+    def _post_map(self, idx: int) -> None:
+        """The periodic checkpoint and mesh after mapped frame ``idx``, at
+        the JAX package's cadence (``SLAMSystem._post_map``): a checkpoint
+        every ``ckpt_freq`` frames but the last (finalize writes that
+        one), a culled mesh every ``mesh_freq`` frames; frame 0 has
+        neither under ``no_log_on_first_frame`` /
+        ``no_mesh_on_first_frame``.  It runs once the frame's record is
+        logged, and the records are flushed before the checkpoint, so the
+        log on disk reaches every frame a resumed run skips."""
+        done = {}
+        if ((not (idx == 0 and self.no_log_on_first_frame))
+                and idx % self.ckpt_freq == 0 and idx != self.n_img - 1):
+            self._flush_metrics()
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(self.output, "ckpts",
+                                         f"{idx:05d}.npz"), self, idx)
+            done["checkpoint_s"] = time.perf_counter() - t0
+        if (idx % self.mesh_freq == 0) and not (
+                idx == 0 and self.no_mesh_on_first_frame):
+            self._extract_and_cull_mesh(
+                os.path.join(self.output, "mesh", f"{idx:05d}_mesh.ply"),
+                upto=idx + 1, seconds=done)
+        if done:
+            self.bookkeeping.append({"frame": idx, **done})
+            if self.verbose:
+                print(f"frame {idx}: {done}")
+
+    def _touch_heartbeat(self, idx: int) -> None:
+        """Rewrite ``<output>/HEARTBEAT`` (the frame and the time): every
+        frame, and at each step of finalize, whose checkpoint and mesh
+        take seconds; ``run_torch.py --supervise --hang-timeout`` reads
+        its age."""
+        with open(os.path.join(self.output, "HEARTBEAT"), "w") as f:
+            f.write(f"{idx} {time.time()}\n")
+
+    def _beat(self, idx: int) -> None:
+        """The heartbeat, and the fault hook the restart tests drive:
+        ``MYSLAM_FAULT_KILL="<frame>[:procid]"`` ends the process (procid
+        0, the only one here) with exit code 21 at the first frame at or
+        after ``<frame>``, once: ``<output>/FAULT_INJECTED`` keeps the
+        restarted run alive."""
+        self._touch_heartbeat(idx)
+        fault = os.environ.get("MYSLAM_FAULT_KILL")
+        if fault:
+            parts = fault.split(":")
+            marker = os.path.join(self.output, "FAULT_INJECTED")
+            if (idx >= int(parts[0])
+                    and (int(parts[1]) if len(parts) > 1 else 0) == 0
+                    and not os.path.exists(marker)):
+                with open(marker, "w") as f:
+                    f.write(f"{idx}\n")
+                os._exit(21)
 
     # -- main loop -------------------------------------------------------------
 
@@ -312,37 +456,50 @@ class SLAMSystem:
 
     def run_loop(self, start_idx: int = 0) -> None:
         """Track and map every frame of the dataset from ``start_idx``."""
+        self._reset_metrics(start_idx)
+        stage = self.device if self.device.type == "cuda" else None
         for idx, pkt in PacketPrefetcher(
                 self.dataset, range(start_idx, self.n_img),
-                self._make_packet):
+                self._make_packet, stage=stage):
             t_frame = time.perf_counter()
+            self._beat(idx)
+            wait_staged(pkt)
             self.frame_start_wall.append(t_frame)
             self.gt_poses[idx] = pkt.gt_c2w
             rec = {"frame": idx}
             self.frame_log.append(rec)
+            deferred = False
             if idx == 0 or self.gt_camera:
+                if not np.isfinite(pkt.gt_c2w).all():
+                    raise ValueError(f"frame {idx}: the ground-truth pose "
+                                     "the run starts from is not finite")
                 self.est[idx] = self._to_dev(pkt.gt_c2w)
             else:
                 self._track_buf.append((idx, pkt, rec))
-            if idx % self.every_frame == 0 or idx == self.n_img - 1:
+                deferred = True
+            mapped = idx % self.every_frame == 0 or idx == self.n_img - 1
+            if mapped:
                 # The group's poses must be in the trajectory before the
                 # mapping window is assembled.
-                self._flush_track_buf()
+                self._flush_track_buf(open_rec=rec)
+                deferred = False
                 self._map_frame(idx, pkt, rec)
                 if self.on_map_done is not None:
                     self.on_map_done(self, idx)
             if idx == self.sync_after_frame:
-                self._flush_track_buf()
+                self._flush_track_buf(open_rec=rec)
+                deferred = False
                 self._sync()
             self.frame_times.append(time.perf_counter() - t_frame)
+            rec["frame_ms"] = self.frame_times[-1] * 1e3
+            if not deferred:
+                self._log_metrics(rec)
+            if mapped:
+                self._post_map(idx)
         self._flush_track_buf()
         self._sync()
         self.drain_wall = time.perf_counter()
-        # Device scalars of the log become floats once, after the loop.
-        for rec in self.frame_log:
-            for k, v in rec.items():
-                if isinstance(v, torch.Tensor):
-                    rec[k] = float(v)
+        self._flush_metrics()
 
     def resume(self, ckpt_path: str | None = None) -> int:
         """Restore the given checkpoint, or the newest one under
@@ -350,28 +507,35 @@ class SLAMSystem:
         is none)."""
         path = ckpt_path or latest_checkpoint(
             os.path.join(self.output, "ckpts"))
-        return 0 if path is None else load_checkpoint(path, self)
+        if path is None:
+            return 0
+        start = load_checkpoint(path, self)
+        if self.verbose:
+            print(f"Resumed from {path} at frame {start}")
+        return start
 
     @property
     def mesh_name(self) -> str:
         return ("final_mesh_eval_rec.ply" if self.eval_rec
                 else "final_mesh.ply")
 
-    def _extract_and_cull_mesh(self, path: str, upto: int) -> str:
+    def _extract_and_cull_mesh(self, path: str, upto: int,
+                               seconds: dict | None = None) -> str:
         """Extract the current mesh to ``path`` and cull it with frames
-        [0, upto) at their estimated poses; returns the culled copy."""
+        [0, upto) at their estimated poses; returns the culled copy.
+        The two steps' seconds go into ``seconds`` (``mesh``, ``cull``)."""
         os.makedirs(os.path.dirname(path), exist_ok=True)
         t0 = time.perf_counter()
         self.mesher.get_mesh(path, self.map_state, self.store)
         t1 = time.perf_counter()
-        # The prefetch thread renders the frames while the device culls.
+        # The prefetch thread reads the frames while the device culls.
         frames = ((d, p) for _, (c, d, p) in
                   Prefetcher(self.dataset, range(upto)))
         out = cull_mesh(path, self.cfg, frames,
                         estimate_c2w_list=self.estimates[:upto],
                         device=self.device)
-        self.finalize_seconds.update(mesh=t1 - t0,
-                                     cull=time.perf_counter() - t1)
+        if seconds is not None:
+            seconds.update(mesh=t1 - t0, cull=time.perf_counter() - t1)
         return out
 
     def finalize(self, mesh: bool = True,
@@ -381,21 +545,26 @@ class SLAMSystem:
         ``<output>/mesh/final_mesh.ply`` (``final_mesh_eval_rec.ply`` in
         eval_rec mode) and its culled copy (``final_mesh``).  Returns the
         checkpoint's path.  A meshing failure raises: the checkpoint is
-        already on disk by then, so the trajectory is safe.  (The JAX
-        package drops its compiled programs before meshing long runs,
-        ``jax.clear_caches``; eager PyTorch holds none.)"""
+        already on disk by then, so the trajectory is safe.  The
+        heartbeat is rewritten at each step.  (The JAX package drops its
+        compiled programs before meshing long runs, ``jax.clear_caches``;
+        eager PyTorch holds none.)"""
         ckpt = None
+        last = self.n_img - 1
+        self._touch_heartbeat(last)
         t0 = time.perf_counter()
         if checkpoint and self.n_img > 0:
             ckpt = save_checkpoint(
-                os.path.join(self.output, "ckpts",
-                             f"{self.n_img - 1:05d}.npz"),
-                self, self.n_img - 1)
+                os.path.join(self.output, "ckpts", f"{last:05d}.npz"),
+                self, last)
         self.finalize_seconds = {"checkpoint": time.perf_counter() - t0}
+        self._touch_heartbeat(last)
         if mesh:
             self.final_mesh = self._extract_and_cull_mesh(
                 os.path.join(self.output, "mesh", self.mesh_name),
-                upto=self.n_img)
+                upto=self.n_img, seconds=self.finalize_seconds)
+            self._touch_heartbeat(last)
+        self._flush_metrics()
         return ckpt
 
     @property
@@ -403,12 +572,16 @@ class SLAMSystem:
         total = sum(self.frame_times)
         return len(self.frame_times) / total if total > 0 else 0.0
 
+    @staticmethod
+    def _build_seconds() -> float:
+        return cuda_sample.BUILD_SECONDS + imageio.BUILD_SECONDS
+
     @property
     def compile_secs(self) -> float:
-        """Seconds spent building kernels since this system was made (0
-        when the library was already built, or built earlier in the
-        process)."""
-        return cuda_sample.BUILD_SECONDS - self._build_seconds_at_start
+        """Seconds spent building the kernels and the image codec since
+        this system was made (0 when both were already built, or built
+        earlier in the process)."""
+        return self._build_seconds() - self._build_seconds_at_start
 
     @property
     def estimates(self) -> np.ndarray:

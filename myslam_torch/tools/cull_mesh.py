@@ -160,13 +160,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Cull a mesh with GT poses.")
     parser.add_argument("config", type=str)
     parser.add_argument("--input_mesh", type=str, required=True)
+    parser.add_argument("--input_folder", type=str, default=None)
     parser.add_argument("--output_mesh", type=str, default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, DEFAULT_CONFIG)
-    dataset = get_dataset(cfg)
+    dataset = get_dataset(cfg, args.input_folder)
     frames = ((d, p) for _, (c, d, p) in
               Prefetcher(dataset, range(len(dataset))))
     out = cull_mesh(args.input_mesh, cfg, frames, args.output_mesh,

@@ -1,8 +1,17 @@
 """Absolute trajectory error (ATE): Horn's closed-form alignment of the
 estimated to the ground-truth trajectory, then statistics of the
-translational error; GT poses with nan/inf are masked out."""
+translational error; GT poses with nan/inf are masked out.
+
+CLI (the newest checkpoint of a run):
+    python -m myslam_torch.tools.eval_ate <config.yaml> [--output DIR]
+
+The JAX package's ``--plot`` is not ported: it needs matplotlib.
+"""
 
 from __future__ import annotations
+
+import argparse
+import os
 
 import numpy as np
 
@@ -54,3 +63,33 @@ def evaluate_run(estimates: np.ndarray, gt_poses: np.ndarray,
     gt, mask = convert_poses(gt_poses, scale)
     est, _ = convert_poses(estimates[mask], scale)
     return evaluate_ate(gt, est)
+
+
+def main(argv=None) -> dict:
+    """Print the ATE of the newest checkpoint under ``<output>/ckpts``
+    as ``key: value`` lines, as the JAX package's CLI does."""
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+    from myslam_torch.utils.logger import latest_checkpoint
+
+    parser = argparse.ArgumentParser(description="Evaluate ATE of a run.")
+    parser.add_argument("config", type=str)
+    parser.add_argument("--output", type=str, default=None)
+    args = parser.parse_args(argv)
+
+    cfg = load_config(args.config, DEFAULT_CONFIG)
+    output = args.output or cfg["data"]["output"]
+    ckpt = latest_checkpoint(os.path.join(output, "ckpts"))
+    if ckpt is None:
+        raise SystemExit(f"no checkpoints under {output}/ckpts")
+    with np.load(ckpt, allow_pickle=True) as data:
+        n = int(data["idx"]) + 1
+        result = evaluate_run(
+            data["estimate_c2w_list"][:n], data["gt_c2w_list"][:n],
+            scale=cfg.get("scale", 1))
+    for k, v in result.items():
+        print(f"{k}: {v}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

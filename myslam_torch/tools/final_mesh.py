@@ -8,6 +8,7 @@ and culling exactly as ``SLAMSystem.finalize`` would
 any finished or interrupted run without re-tracking.
 
 CLI: python -m myslam_torch.tools.final_mesh <config.yaml> [--output DIR]
+     [--input_folder DIR]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ def main(argv=None) -> str:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("config", type=str)
     parser.add_argument("--output", type=str, default=None)
+    parser.add_argument("--input_folder", type=str, default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     args = parser.parse_args(argv)
@@ -29,7 +31,8 @@ def main(argv=None) -> str:
     from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
 
     cfg = load_config(args.config, DEFAULT_CONFIG)
-    slam = SLAMSystem(cfg, output=args.output, device=args.device)
+    slam = SLAMSystem(cfg, input_folder=args.input_folder,
+                      output=args.output, device=args.device)
     if slam.resume() == 0:
         raise SystemExit("no checkpoint to mesh from")
     t0 = time.perf_counter()

@@ -553,3 +553,91 @@ def test_stage_lines_on_the_card_uploads_the_evicted_slot(dev):
     assert ln != st.scratch_line
     np.testing.assert_array_equal(st.cache_colors[ln].cpu().numpy(), c)
     np.testing.assert_array_equal(st.cache_depths[ln].cpu().numpy(), d)
+
+
+def _packet(rng, idx, H=96, W=128, iters=6, n_px=5000):
+    """A full FramePacket of random content, its numpy arrays kept."""
+    from myslam_torch.utils.datasets import STAGED_FIELDS, FramePacket
+
+    pkt = FramePacket(
+        idx, np.eye(4, dtype=np.float32),
+        rng.integers(0, W, (iters, n_px)).astype(np.uint16),
+        rng.integers(0, H, (iters, n_px)).astype(np.uint16),
+        rng.integers(0, 256, (iters, n_px, 3), np.uint8),
+        rng.uniform(0, 5, (iters, n_px)).astype(np.float32),
+        rng.integers(0, 256, (H, W, 3), np.uint8),
+        rng.integers(0, 65536, (H, W), np.uint16), 1e-4, True)
+    return pkt, {k: getattr(pkt, k) for k in STAGED_FIELDS}
+
+
+def _assert_staged(pkt, ref):
+    from myslam_torch.utils.datasets import wait_staged
+
+    wait_staged(pkt)
+    assert pkt.ready is None
+    for name, arr in ref.items():
+        got = getattr(pkt, name)
+        assert got.device.type == "cuda" and got.shape == arr.shape
+        np.testing.assert_array_equal(got.cpu().numpy(), arr)
+    np.testing.assert_array_equal(pkt.imagery_host()[0], ref["color_u8"])
+    np.testing.assert_array_equal(pkt.imagery_host()[1], ref["depth_u16"])
+
+
+@pytest.mark.cuda
+def test_staged_packet_equals_its_numpy_packet(dev):
+    """stage_packet's uploads, once the consumer's stream waits on their
+    event, hold the packet's numpy arrays byte for byte (uint16 pixel
+    coordinates and depths included), and the host imagery stays."""
+    from myslam_torch.utils.datasets import PinnedRing, build_packet, \
+        stage_packet, Synthetic
+
+    cfg = {"dataset": "synthetic", "data": {"n_frames": 2},
+           "cam": {"H": 48, "W": 64, "fx": 40.0, "fy": 40.0, "cx": 31.5,
+                   "cy": 23.5}}
+    pkt = build_packet(Synthetic(cfg), 1, iters=4, n_px=300, ie_h=2, ie_w=2,
+                       need_full=True)
+    ref = {k: getattr(pkt, k) for k in ("px_i", "px_j", "px_color",
+                                        "px_depth", "color_u8", "depth_u16")}
+    _assert_staged(stage_packet(pkt, PinnedRing(dev, 2)), ref)
+
+
+@pytest.mark.cuda
+def test_pinned_ring_survives_more_packets_in_flight_than_slots(dev):
+    """Twelve packets staged through a ring of two slots before any is
+    consumed: every slot is refilled only after its previous copy has
+    completed, so each packet arrives intact; the ring allocates its
+    pinned buffers once per slot and field."""
+    from myslam_torch.utils.datasets import PinnedRing, STAGED_FIELDS, \
+        stage_packet
+
+    rng = np.random.default_rng(21)
+    ring = PinnedRing(dev, 2)
+    staged = []
+    for idx in range(12):
+        pkt, ref = _packet(rng, idx)
+        staged.append((stage_packet(pkt, ring), ref))
+    for pkt, ref in staged:
+        _assert_staged(pkt, ref)
+    assert ring.allocations == 2 * len(STAGED_FIELDS)
+
+
+@pytest.mark.cuda
+def test_codec_round_trips_on_this_host(dev):
+    """The codec builds and runs on the card's host: PNG round trips byte
+    for byte, the JPEG one at quality 95 within OpenCV's error on the
+    same 680x1200 render (chip_smoke.JPEG_Q95_*)."""
+    import chip_smoke
+    from myslam_torch.utils import imageio
+    from myslam_torch.utils.datasets import Synthetic
+
+    cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
+    color, depth, _ = Synthetic(cfg).get_frame(0)
+    rgb = (np.clip(color, 0, 1) * 255).astype(np.uint8)
+    d16 = np.clip(depth * 6553.5, 0, 65535).astype(np.uint16)
+    for img in (rgb, d16, rgb[..., 0]):
+        np.testing.assert_array_equal(
+            imageio.read_png(imageio.encode_png(img)), img)
+    err = np.abs(imageio.read_jpeg(imageio.encode_jpeg(rgb, 95)).astype(
+        np.int64) - rgb)
+    assert err.max() <= chip_smoke.JPEG_Q95_MAX_ERR
+    assert err.mean() <= chip_smoke.JPEG_Q95_MEAN_ERR

@@ -4,8 +4,10 @@
     a finite ATE and writes the final mesh and its culled copy;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
   * no module of ``myslam_torch/``, nor ``chip_smoke.py``,
-    ``run_torch.py`` or ``bench_torch.py``, imports JAX or the JAX
-    package (checked on the sources' import statements).
+    ``run_torch.py`` or ``bench_torch.py``, imports JAX, the JAX package,
+    OpenCV or Pillow (checked on the sources' import statements): the
+    card's machine has neither image library, so the port reads its
+    images with its own codec.
 """
 
 import ast
@@ -19,7 +21,7 @@ import yaml
 torch.set_num_threads(2)  # several test workers share the CPU
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "myslam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "myslam_tpu", "cv2", "PIL")
 
 
 def _port_sources():
@@ -31,6 +33,7 @@ def _port_sources():
 
 
 def test_port_never_imports_jax_or_the_jax_package():
+    """Nor OpenCV or Pillow."""
     sources = _port_sources()
     assert len(sources) > 20
     bad = []
