@@ -40,7 +40,11 @@ Phases, one JSON line each:
                      against the plain version's; then the analytic GT
                      mesh at 1 cm, both meshes culled in eval_rec mode
                      with the 13 frames, and the 3-D metrics (accuracy
-                     must stay under 2 cm);
+                     must stay under 2 cm); then ``replay``:
+                     visualizer_torch.replay of that run with the depth
+                     rasterizer on the card (every 4th frame, decoded at
+                     600x600), each culled mesh's background equal,
+                     element for element, to the CPU rasterizer's;
   5. bench_scatter -- K3's path: tools/bench_scatter.py's gather and
                      scatter sections at Replica room0 scale, one line per
                      strategy; K3 must agree with K1 and its plain version
@@ -116,7 +120,27 @@ Phases, one JSON line each:
                      schedule with freiburg1_desk.yaml's crop (384x512,
                      edge 8) and a zero distortion: the rebased first
                      pose, the association, the 368x496 camera, the
-                     importance branch, ATE and K1/K2 launches.
+                     importance branch, ATE and K1/K2 launches;
+ 14. vis          -- the in-loop panels: room.yaml at full width for 5
+                     frames with tracking panels at iterations 0 and 4 of
+                     frames 2 and 4 and mapping panels at iterations 0, 5
+                     and 10 of frame 4 (7 panels, each a 1360x3600 JPEG of
+                     ground truth, render and residual, through the image
+                     renderer: 20 chunks of 40,960 rays, three K1 calls
+                     each): the files against the JAX package's gating,
+                     each decoded, each panel's mean depth error under 5
+                     cm, K1 exactly 60 per panel over the loop's launches,
+                     K2 the loop's alone, ATE, seconds per panel; then one
+                     panel rendered alone (seconds, peak memory) and K1 at
+                     its chunk 10's SDF and color samples (1,638,400
+                     ray-ordered points, f32 quads) against its plain
+                     version;
+ 15. components   -- tools/profile_components.py on room.yaml: the
+                     mapping iteration by component, ms per call (CUDA
+                     events), device ms (torch.profiler) and launches;
+ 16. raysweep     -- tools/bench_raysweep.py: ms per mapping iteration of
+                     the 15-iteration window at 4,000 to 250 rays, the
+                     fitted floor and slope.
 
 Phase 2 also holds K1 and K2 at the TUM schedule's shapes (280,000
 mapping and tracking points, bf16 quads).
@@ -131,7 +155,10 @@ and K3's times at the mapping SDF sample on uniform points, and as
 schedule's mapping SDF sample as ``ms_tum*``, with their launches in
 phases 7, 9 and 10 as ``launches_slam_packed`` / ``_host_staged`` /
 ``launches_host_evict``, and in phases 12 and 13 as
-``launches_replica_layout`` / ``launches_tum_layout``), and last
+``launches_replica_layout`` / ``launches_tum_layout``; K1's at the
+image renderer's chunk as ``ms_image`` / ``ms_image_graph`` with its
+bound, plain and library times, and K1's and K2's launches in phase 14
+as ``launches_vis``), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -216,6 +243,27 @@ RESUME_GATE_M = 0.045
 TUM_LAYOUT_CONFIG = "configs/TUM_RGBD/tum.yaml"
 TUM_CROP_CONFIG = "configs/TUM_RGBD/freiburg1_desk.yaml"
 TUM_LAYOUT_FRAMES = 6
+# Phase vis: room.yaml at full width, cut to VIS_FRAMES, with panels of
+# tracking (every 2nd frame, iterations 0 and 4 of 8) and mapping (every
+# 4th mapped frame but frame 0, iterations 0, 5 and 10 of 15); the image
+# renderer's chunk (make_image_renderer's ray_batch_size); the gate on a
+# panel's mean |rendered - input| depth over the pixels with depth.
+VIS_FRAMES = 5
+VIS_SETTINGS = {"tracking": {"vis_freq": 2, "vis_inside_freq": 4},
+                "mapping": {"vis_freq": 4, "vis_inside_freq": 5}}
+IMAGE_CHUNK = 40960
+VIS_DEPTH_GATE_M = 0.05
+# Phase replay: every 4th frame of the phase-slam run; a broken camera
+# or mesh covers nothing of the frame (the 13-frame run's culled mesh
+# covers 5.4 % under the replay's fixed framing, NVIDIA H100 80GB HBM3).
+REPLAY_EVERY = 4
+REPLAY_MIN_COVER = 0.01
+# The chunk of a panel whose two fine samples phase vis holds K1 at.
+IMAGE_CHUNK_INDEX = 10
+# Phases components and raysweep: the calls per component, the windows
+# per ray count.
+COMPONENT_ITERS = 10
+RAYSWEEP_REPS = 2
 
 
 def emit(obj) -> None:
@@ -659,8 +707,9 @@ def run_slam(cfg, phase: str = "slam",
              setup=None) -> tuple:
     """SLAMSystem's loop on ``cfg`` with K1/K2 launches counted from zero
     and checked per group against its iterations (a periodic mesh's K1
-    launches, one per volume chunk and per chunk of vertex colors, apart);
-    the trajectory and ATE (under 2 cm).  ``setup(slam)`` runs before the
+    launches, one per volume chunk and per chunk of vertex colors, and a
+    panel's, three per image chunk, apart); the trajectory and ATE (under
+    2 cm).  ``setup(slam)`` runs before the
     loop.  Emits the frames' lines; returns the phase record (not
     emitted) and the system."""
     import numpy as np
@@ -675,8 +724,9 @@ def run_slam(cfg, phase: str = "slam",
     n_frames = slam.n_img
     t_iters = int(cfg["tracking"]["iters"])
     # Launches per group (its tracked frames and the mapped frame that
-    # closes it), read after each mapped frame; and each periodic mesh's.
-    groups, meshes = [], []
+    # closes it), read after each mapped frame; each periodic mesh's, and
+    # each panel's.
+    groups, meshes, panels = [], [], []
 
     def count_group(system, idx):
         recs = [r for r in system.frame_log
@@ -685,7 +735,7 @@ def run_slam(cfg, phase: str = "slam",
                 + recs[-1]["map_iters"])
         coarse = recs[-1]["map_iters"] if recs[-1]["map_importance"] else 0
         groups.append({"frame": idx, "iterations": n_it, "coarse": coarse,
-                       "meshes": len(meshes),
+                       "meshes": len(meshes), "panels": len(panels),
                        "launches": dict(cuda_sample.LAUNCHES)})
 
     extract = slam._extract_and_cull_mesh
@@ -704,6 +754,24 @@ def run_slam(cfg, phase: str = "slam",
         meshes.append(got)
         return out
 
+    def counted_render(render, n_chunks):
+        def wrapped(*a, **k):
+            before = dict(cuda_sample.LAUNCHES)
+            out = render(*a, **k)
+            got = {n: cuda_sample.LAUNCHES[n] - before[n] for n in before}
+            if got != {**got, "plane_sample_fwd": 3 * n_chunks,
+                       "plane_sample_bwd": 0, "plane_sample_fwd_smem": 0}:
+                raise AssertionError(f"{phase}: panel launches {got}, "
+                                     f"expected {3 * n_chunks} of K1 and "
+                                     "no other")
+            panels.append(got)
+            return out
+        return wrapped
+
+    n_px = slam.cam.H * slam.cam.W
+    n_chunks = -(-n_px // min(IMAGE_CHUNK, n_px))
+    for vis in (slam.track_vis, slam.map_vis):
+        vis._render_img = counted_render(vis._render_img, n_chunks)
     slam.on_map_done = count_group
     slam._extract_and_cull_mesh = counted_mesh
     torch.cuda.reset_peak_memory_stats()
@@ -719,12 +787,13 @@ def run_slam(cfg, phase: str = "slam",
     for r in slam.frame_log:
         emit({"phase": phase + "_frame", **r})
 
-    def mesh_sum(calls):
+    def launch_sum(calls):
         return {n: sum(c[n] for c in calls) for n in launches}
 
-    before, seen = {name: 0 for name in SLAM_KERNELS}, 0
+    before, seen, seen_p = {name: 0 for name in SLAM_KERNELS}, 0, 0
     for g in groups:
-        in_group = mesh_sum(meshes[seen:g["meshes"]])
+        in_group = launch_sum(meshes[seen:g["meshes"]]
+                            + panels[seen_p:g["panels"]])
         for name in SLAM_KERNELS:
             grown = g["launches"][name] - before[name] - in_group[name]
             want = SAMPLES_PER_ITER * g["iterations"] + (
@@ -735,11 +804,10 @@ def run_slam(cfg, phase: str = "slam",
                     f"{g['frame']}, expected {SAMPLES_PER_ITER} per each of "
                     f"its {g['iterations']} iterations and (K1) one per "
                     f"importance iteration ({g['coarse']})")
-        before, seen = g["launches"], g["meshes"]
+        before, seen, seen_p = g["launches"], g["meshes"], g["panels"]
     expected = expected_launches(slam)
-    mesh_launches = mesh_sum(meshes)
-    check_launches({n: launches[n] - mesh_launches[n] for n in launches},
-                   expected)
+    other = launch_sum(meshes + panels)
+    check_launches({n: launches[n] - other[n] for n in launches}, expected)
     losses = [v for r in slam.frame_log for k, v in r.items()
               if "loss" in k]
     if not all(math.isfinite(v) for v in losses):
@@ -768,6 +836,7 @@ def run_slam(cfg, phase: str = "slam",
         "frame0_s": mapped[0]["map_ms"] / 1e3,
         "wall_s": wall, "ate_rmse_cm": ate_cm, "launches": launches,
         "expected_launches": expected, "mesh_launches": meshes,
+        "panel_launches": launch_sum(panels), "panels": len(panels),
         "calls": sample_calls(slam),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -888,6 +957,61 @@ def run_mesh(slam) -> dict:
         raise AssertionError(f"accuracy {metrics['accuracy_cm']:.3f} cm "
                              "exceeds 2 cm")
     return {**out, **rec}
+
+
+def run_replay(output: str) -> dict:
+    """visualizer_torch.replay of the phase-slam run (its newest
+    checkpoint and its culled meshes) with the depth rasterizer on the
+    card: every REPLAY_EVERY-th frame, each decoded at (H, W, 3); each
+    mesh's background depth from the card's rasterizer equal, element
+    for element, to the CPU rasterizer's on the same mesh and camera,
+    and covering at least REPLAY_MIN_COVER of the frame."""
+    import torch
+
+    import visualizer_torch as vt
+    from myslam_torch.utils.imageio import read_jpeg
+    from myslam_torch.utils.meshmath import make_depth_rasterizer
+    from myslam_torch.utils.ply import read_ply
+
+    t = time.perf_counter()
+    frames = vt.replay(output, every=REPLAY_EVERY, device=DEVICE)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t
+    n = len(vt._load_run(output)[0])
+    want = [f"{i:05d}.jpg" for i in range(0, n, REPLAY_EVERY)]
+    if [os.path.basename(f) for f in frames] != want:
+        raise AssertionError(f"replay frames {frames}, expected {want}")
+    for f in frames:
+        if read_jpeg(f).shape != (vt.H, vt.W, 3):
+            raise AssertionError(f"{f}: shape {read_jpeg(f).shape}")
+    sched = vt._mesh_schedule(output, n)
+    if not sched:
+        raise AssertionError(f"no culled mesh under {output}/mesh")
+    w2c = vt.mesh_view(read_ply(sched[-1][1])[0])
+    args = (vt.H, vt.W, vt.FOCAL, vt.FOCAL, vt.W / 2, vt.H / 2)
+    card = make_depth_rasterizer(*args, device=DEVICE)
+    cpu = make_depth_rasterizer(*args, device="cpu")
+    meshes = []
+    for at, path in sched:
+        t = time.perf_counter()
+        d_card = vt.mesh_depth(path, w2c, card)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        d_cpu = vt.mesh_depth(path, w2c, cpu)
+        cpu_s = time.perf_counter() - t
+        cover = float((d_card > 0).mean())
+        differ = int((d_card != d_cpu).sum())
+        meshes.append({"mesh": os.path.relpath(path, output), "at": at,
+                       "cover": cover, "pixels_differ": differ,
+                       "card_s": card_s, "cpu_s": cpu_s})
+        if differ or cover < REPLAY_MIN_COVER:
+            raise AssertionError(f"replay background of {path}: {differ} "
+                                 f"pixels differ from the CPU rasterizer's, "
+                                 f"cover {cover:.3f}")
+    rec = {"phase": "replay", "output": output, "every": REPLAY_EVERY,
+           "frames": len(frames), "replay_s": replay_s, "meshes": meshes}
+    emit(rec)
+    return rec
 
 
 def run_bench_scatter() -> dict:
@@ -1511,6 +1635,207 @@ def run_tum_layout() -> dict:
     return out
 
 
+def expected_panels(slam) -> list[str]:
+    """The panel files the JAX package's gating gives for this run's
+    schedule (myslam_tpu/engine/scheduler.py: ``_maybe_track_vis``, every
+    tracked frame with idx % tracking.vis_freq == 0 at iterations 0,
+    inside_freq, ...; ``_make_map_vis_hook``, every mapped frame with
+    idx % mapping.vis_freq == 0, frame 0 only without
+    no_vis_on_first_frame, at iteration 0 and every multiple of
+    inside_freq below the frame's iterations)."""
+    cfg, n = slam.cfg, slam.n_img
+    t, m = cfg["tracking"], cfg["mapping"]
+    t_freq, t_in = max(int(t["vis_freq"]), 1), max(int(t["vis_inside_freq"]),
+                                                   1)
+    m_freq, m_in = max(int(m["vis_freq"]), 1), max(int(m["vis_inside_freq"]),
+                                                   1)
+    names = []
+    for idx in range(n):
+        if idx > 0 and idx % t_freq == 0:
+            names += [f"tracking_vis/{idx:05d}_{it:04d}.jpg"
+                      for it in range(0, int(t["iters"]), t_in)]
+        mapped = idx % int(m["every_frame"]) == 0 or idx == n - 1
+        if (mapped and idx % m_freq == 0
+                and not (idx == 0 and m["no_vis_on_first_frame"])):
+            iters = int(m["iters_first"] if idx == 0 else m["iters"])
+            names += [f"mapping_vis/{idx:05d}_{it:04d}.jpg"
+                      for it in [0, *range(m_in, iters, m_in)]]
+    return sorted(names)
+
+
+def check_image_chunk(slam) -> dict:
+    """One panel of the last frame rendered again on the run's final map,
+    alone: its seconds and peak memory; then once more with K1's inputs
+    caught at chunk IMAGE_CHUNK_INDEX's two fine samples (SDF and color,
+    f32 quads, 1,638,400 ray-ordered points at 680x1200), where K1 is
+    held against its plain version and timed."""
+    import torch
+
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.render.renderer import make_image_renderer
+    from myslam_torch.tools.bench_sample_bwd import row_updates
+
+    dev = torch.device(DEVICE)
+    idx = slam.n_img - 1
+    _, depth, _ = slam.dataset.get_frame(idx)
+    gt_depth = torch.as_tensor(depth, dtype=torch.float32).to(dev)
+    c2w = slam.est[idx]
+    render = make_image_renderer(slam.scene, slam.cam, IMAGE_CHUNK)
+    ms = slam.map_state
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    render(ms, c2w, gt_depth, TorchDraws(SEED, dev))
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    caught = []
+    fwd = cuda_sample.plane_sample_fwd
+    first = 3 * IMAGE_CHUNK_INDEX + 1  # the chunk's coarse pass comes first
+
+    def catch(quad, layout, p_nor):
+        if catch.calls in (first, first + 1):
+            caught.append((quad, layout, p_nor))
+        catch.calls += 1
+        return fwd(quad, layout, p_nor)
+
+    catch.calls = 0
+    cuda_sample.plane_sample_fwd = catch
+    try:
+        render(ms, c2w, gt_depth, TorchDraws(SEED, dev))
+    finally:
+        cuda_sample.plane_sample_fwd = fwd
+    out = {"case": "image_chunk", "chunk": IMAGE_CHUNK_INDEX,
+           "frame": idx, "render_s": render_s,
+           "render_peak_gb": peak / 1e9,
+           "render_own_peak_gb": (peak - base) / 1e9}
+    for (quad, layout, p_nor), name, atlas in zip(
+            caught, ("sdf", "color"),
+            (ms.sdf_atlas.detach(), ms.color_atlas.detach())):
+        C = layout.c_dim
+        planes = [atlas[off:off + H * W].reshape(H, W, C).permute(2, 0, 1)
+                  [None].contiguous()
+                  for _, _, _, _, H, W, off in layout.planes()]
+        rows = row_updates(layout, p_nor, cuda_sample.FWD_RUN)
+        rec, _, _ = check_fwd(quad, layout, p_nor, rows, planes)
+        out[name] = {"rows": layout.total_rows, "points": p_nor.shape[0],
+                     "quad_dtype": str(quad.dtype).replace("torch.", ""),
+                     "fwd": rec}
+    if len(caught) != 2:
+        raise AssertionError(f"caught {len(caught)} of the chunk's two "
+                             "fine samples")
+    emit({"phase": "kernels", **out})
+    return out
+
+
+def run_vis() -> dict:
+    """The panels: room.yaml at full width for VIS_FRAMES frames with
+    VIS_SETTINGS (run_slam: K1 exactly 3 per image chunk per panel over
+    the loop's own launches, K2 the loop's alone; ATE); the panel files
+    against the JAX package's gating, each decoded at (2H, 3W, 3), each
+    rendered depth within VIS_DEPTH_GATE_M of the input on average; then
+    check_image_chunk."""
+    import glob
+
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+    from myslam_torch.utils.imageio import read_jpeg
+
+    cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
+    cfg["data"]["n_frames"] = VIS_FRAMES
+    cfg["data"]["output"] = os.path.join("output", "chip_smoke", "vis")
+    for section, values in VIS_SETTINGS.items():
+        cfg[section].update(values)
+    shutil.rmtree(cfg["data"]["output"], ignore_errors=True)
+    out, slam = run_slam(cfg, phase="vis")
+    records = slam.track_vis.records + slam.map_vis.records
+    want = expected_panels(slam)
+    written = sorted(os.path.relpath(r["file"], slam.output)
+                     for r in records)
+    on_disk = sorted(os.path.relpath(p, slam.output) for p in glob.glob(
+        os.path.join(slam.output, "*_vis", "*.jpg")))
+    if not (written == on_disk == want):
+        raise AssertionError(f"panels {written}, on disk {on_disk}, "
+                             f"expected {want}")
+    H, W = slam.cam.H, slam.cam.W
+    for r in records:
+        shape = read_jpeg(r["file"]).shape
+        r["shape"] = list(shape)
+        if shape != (2 * H, 3 * W, 3):
+            raise AssertionError(f"{r['file']}: decoded {shape}")
+        if not r["depth_l1_m"] <= VIS_DEPTH_GATE_M:
+            raise AssertionError(f"{r['file']}: mean depth error "
+                                 f"{r['depth_l1_m']:.4f} m")
+    n_chunks = -(-H * W // IMAGE_CHUNK)
+    k1, k2 = "plane_sample_fwd", "plane_sample_bwd"
+    if (out["launches"][k1] != out["expected_launches"][k1]
+            + 3 * n_chunks * len(want)
+            or out["launches"][k2] != out["expected_launches"][k2]):
+        raise AssertionError(f"vis launches {out['launches']}, expected "
+                             f"{out['expected_launches']} and "
+                             f"{3 * n_chunks} of K1 per panel")
+    out.update(panel_files=want, panel_records=records,
+               image_chunks=n_chunks,
+               panel_s=[r["seconds"] for r in records])
+    emit(out)
+    out["image_chunk"] = check_image_chunk(slam)
+    return out
+
+
+def run_tool(main, argv) -> dict:
+    """A tool's main(argv) with its printing caught, and K1/K2 launches
+    counted from zero: its report with them (``launches``); fails unless
+    both kernels ran."""
+    import contextlib
+    import io
+
+    from myslam_torch.ops import cuda_sample
+
+    cuda_sample.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = main(argv)
+    rep["launches"] = dict(cuda_sample.LAUNCHES)
+    if not all(rep["launches"][name] for name in SLAM_KERNELS):
+        raise AssertionError(f"{main.__module__}: launches "
+                             f"{rep['launches']}")
+    return rep
+
+
+def run_components() -> dict:
+    """tools/profile_components.py on room.yaml's top-K lane: per
+    component ms (events), device_ms (torch.profiler) and launches per
+    call."""
+    from myslam_torch.tools import profile_components
+
+    rep = run_tool(profile_components.main,
+                   ["--iters", str(COMPONENT_ITERS), "--device", DEVICE,
+                    "--json"])
+    for name, c in rep["components"].items():
+        if not (c["ms"] > 0 and c["device_ms"] and c["launches"]):
+            raise AssertionError(f"component {name}: {c}")
+    out = {"phase": "components", **rep}
+    emit(out)
+    return out
+
+
+def run_raysweep() -> dict:
+    """tools/bench_raysweep.py at its five ray counts, RAYSWEEP_REPS
+    windows each: the fit and the rows."""
+    from myslam_torch.tools import bench_raysweep
+
+    rep = run_tool(bench_raysweep.main,
+                   ["--reps", str(RAYSWEEP_REPS), "--device", DEVICE,
+                    "--json"])
+    for lane in rep["lanes"].values():
+        if not all(math.isfinite(t) and t > 0 for t in lane["iter_ms"]):
+            raise AssertionError(f"raysweep {lane}")
+    out = {"phase": "raysweep", **rep}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1554,6 +1879,7 @@ def main(argv=None) -> int:
     slam, system = run_slam(cfg)
     emit(slam)
     mesh = run_mesh(system)
+    run_replay(system.output)
     del system
     bench = run_bench_scatter()
     run_bench_exact()
@@ -1567,6 +1893,9 @@ def main(argv=None) -> int:
     run_codec()
     replica = run_replica_layout(args.replica_runs, RESUME_GATE_M)
     tum_layout = run_tum_layout()
+    vis = run_vis()
+    run_components()
+    run_raysweep()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1600,7 +1929,9 @@ def main(argv=None) -> int:
             "source": f"myslam_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c[k]["max_abs_err"] for c in cases
-                               + [mesh_case, mesh["color_case"]]
+                               + [mesh_case, mesh["color_case"],
+                                  vis["image_chunk"]["sdf"],
+                                  vis["image_chunk"]["color"]]
                                for k in checked[key] if k in c),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1623,6 +1954,17 @@ def main(argv=None) -> int:
         "bound_ms_mesh_colors": k1_colors["bound_ms"],
         "plain_ms_mesh_colors": k1_colors["plain_ms"],
         "launches_mesh": mesh["launches"]["plane_sample_fwd"]})
+    # K1 at the image renderer's call (phase vis: the SDF sample of one
+    # chunk, 1,638,400 ray-ordered points, f32 quad) and its launches in
+    # phase vis, the panels' included.
+    k1_image = vis["image_chunk"]["sdf"]["fwd"]
+    kernels[0].update({
+        "ms_image": k1_image["ms"], "ms_image_graph": k1_image["ms_graph"],
+        "bound_ms_image": k1_image["bound_ms"],
+        "plain_ms_image": k1_image["plain_ms"],
+        "library_ms_image": k1_image["library_ms"],
+        "launches_vis": vis["launches"]["plane_sample_fwd"]})
+    kernels[1]["launches_vis"] = vis["launches"]["plane_sample_bwd"]
     # K1 and K2 at the TUM schedule's mapping SDF sample (280,000 points,
     # bf16 quad) and their launches in phases slam_packed and
     # slam_host_staged; K1's in the host-staged run's mesh.

@@ -30,6 +30,16 @@ def rays_from_uv(i, j, c2w: torch.Tensor, fx, fy, cx, cy):
     return rays_o, rays_d
 
 
+def rays_full_image(H: int, W: int, fx, fy, cx, cy, c2w: torch.Tensor):
+    """Rays (rays_o, rays_d), each (H, W, 3), for every pixel of an H x W
+    image under pose c2w (4, 4)."""
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=c2w.device),
+        torch.arange(W, dtype=torch.float32, device=c2w.device),
+        indexing="ij")
+    return rays_from_uv(i, j, c2w, fx, fy, cx, cy)
+
+
 def normalize_3d_coordinate(p: torch.Tensor, bound: torch.Tensor):
     """World points (..., 3) into [-1, 1]^3 against bound (3, 2)."""
     lo = bound[:, 0]

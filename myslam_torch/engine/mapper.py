@@ -35,10 +35,23 @@ from myslam_torch.render.renderer import SceneGeometry, make_queries, \
     render_core
 
 
-def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
-                importance: bool = True, packed: bool = False):
-    """The per-iteration mapping loss and the optimizer factory.
+def map_quad_dtype(cfg: dict):
+    """The quads' read precision of the mapping loss (mapping.map_bf16):
+    torch.bfloat16, or None for the atlases' float32."""
+    return (torch.bfloat16 if bool(cfg["mapping"].get("map_bf16", False))
+            else None)
 
+
+def _build_stages(cfg: dict, scene: SceneGeometry, cam: Camera,
+                  packed: bool = False):
+    """The mapping loss's first and last stages, around render_core.
+
+    Returns (geometry, losses):
+      geometry(poses, pose_mask, slot_kf, n_slots, kf_colors, kf_depths,
+               kf_inv_q, draws) -> (rays_o, rays_d, px_depth, px_color,
+               inside): the pixel draw and reads, and the rays;
+      losses(sdf, z_vals, depth, color, px_depth, px_color, inside) ->
+               the weighted loss.
     ``packed``: the imagery is the wire format, color uint8 and depth
     uint16 with a float32 scale per slot (``kf_inv_q``); only the sampled
     pixels are dequantized."""
@@ -48,29 +61,11 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
     w_fs, w_center, w_tail = (float(m["w_sdf_fs"]),
                               float(m["w_sdf_center"]),
                               float(m["w_sdf_tail"]))
-    lr = m["lr"]
-    learnable_beta = bool(cfg["rendering"].get("learnable_beta", True))
-    quad_dtype = torch.bfloat16 if bool(m.get("map_bf16", False)) else None
     HW = cam.H * cam.W
 
-    def make_optimizer(ms: MapState, poses: torch.Tensor, lr_factor: float):
-        dec = ms.decoder
-        dec_params = dec.mlp_params() + ([dec.beta] if learnable_beta
-                                         else [])
-        return torch.optim.Adam([
-            {"params": dec_params,
-             "lr": float(lr["decoders_lr"]) * lr_factor},
-            {"params": [ms.sdf_atlas],
-             "lr": float(lr["planes_lr"]) * lr_factor},
-            {"params": [ms.color_atlas],
-             "lr": float(lr["c_planes_lr"]) * lr_factor},
-            {"params": [poses], "lr": float(m["joint_opt_cam_lr"])},
-        ])
-
-    def loss_fn(ms: MapState, poses, pose_mask, slot_kf, n_slots,
-                kf_colors, kf_depths, kf_inv_q, draws):
-        """One iteration's loss.  Draws, in order: pixel columns, pixel
-        rows (``randint``), then the renderer's (build_z_vals_core)."""
+    def geometry(poses, pose_mask, slot_kf, n_slots, kf_colors, kf_depths,
+                 kf_inv_q, draws):
+        """Draws, in order: pixel columns, pixel rows (``randint``)."""
         dev = poses.device
         poses = torch.where(pose_mask[:, None] > 0, poses, poses.detach())
         c2ws = cam_pose_to_matrix(poses)
@@ -92,9 +87,9 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
         t_exit = ray_aabb_exit_t(rays_o.detach(), rays_d.detach(),
                                  scene.bound_tensor(dev))
         inside = t_exit >= px_depth  # depth-0 rays pass, as the reference
-        depth, color, sdf, z_vals = render_core(
-            draws, scene, rays_o, rays_d, px_depth, importance,
-            make_queries(ms, scene, quad_dtype=quad_dtype))
+        return rays_o, rays_d, px_depth, px_color, inside
+
+    def losses(sdf, z_vals, depth, color, px_depth, px_color, inside):
         dmask = inside & (px_depth > 0)
         loss = sdf_losses(sdf, z_vals, px_depth, dmask, scene.truncation,
                           w_fs, w_center, w_tail)
@@ -102,23 +97,74 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
         loss = loss + w_depth * depth_loss(px_depth, depth, dmask)
         return loss
 
+    return geometry, losses
+
+
+def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
+                importance: bool = True, packed: bool = False):
+    """The per-iteration mapping loss and the optimizer factory.
+
+    The loss runs _build_stages' geometry, render_core over the map's
+    quads (packed here each iteration, at ``map_quad_dtype``), then
+    _build_stages' losses; ``packed`` as there."""
+    m = cfg["mapping"]
+    lr = m["lr"]
+    learnable_beta = bool(cfg["rendering"].get("learnable_beta", True))
+    quad_dtype = map_quad_dtype(cfg)
+    geometry, losses = _build_stages(cfg, scene, cam, packed)
+
+    def make_optimizer(ms: MapState, poses: torch.Tensor, lr_factor: float):
+        dec = ms.decoder
+        dec_params = dec.mlp_params() + ([dec.beta] if learnable_beta
+                                         else [])
+        return torch.optim.Adam([
+            {"params": dec_params,
+             "lr": float(lr["decoders_lr"]) * lr_factor},
+            {"params": [ms.sdf_atlas],
+             "lr": float(lr["planes_lr"]) * lr_factor},
+            {"params": [ms.color_atlas],
+             "lr": float(lr["c_planes_lr"]) * lr_factor},
+            {"params": [poses], "lr": float(m["joint_opt_cam_lr"])},
+        ])
+
+    def loss_fn(ms: MapState, poses, pose_mask, slot_kf, n_slots,
+                kf_colors, kf_depths, kf_inv_q, draws):
+        """One iteration's loss.  Draws, in order: geometry's, then the
+        renderer's (build_z_vals_core)."""
+        rays_o, rays_d, px_depth, px_color, inside = geometry(
+            poses, pose_mask, slot_kf, n_slots, kf_colors, kf_depths,
+            kf_inv_q, draws)
+        depth, color, sdf, z_vals = render_core(
+            draws, scene, rays_o, rays_d, px_depth, importance,
+            make_queries(ms, scene, quad_dtype=quad_dtype))
+        return losses(sdf, z_vals, depth, color, px_depth, px_color, inside)
+
     return loss_fn, make_optimizer
 
 
 def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
                      c2ws, pose_mask, slot_kf, lines, n_slots, imagery,
                      idx: int, draws, iters: int, lr_factor: float,
-                     joint_opt: bool):
+                     joint_opt: bool, vis_hook=None, vis_every: int = 1):
     """The iterations over one window, then the masked pose write-back.
 
     ``c2ws`` (w_max, 4, 4) are the window's starting poses, ``slot_kf``
     its global store slots (where the poses go back), ``lines`` the
     imagery rows the rays read (``imagery``: colors, depths, inv_q).
+    ``vis_hook(m, ms, c2w)``, when given, is called before iteration m's
+    step for every multiple m of ``vis_every`` with 0 < m < iters, with
+    the map after m iterations and the current frame's pose (slot
+    n_slots - 1); without it the loop reads nothing back.
     Returns the losses (iters,) on the device."""
     poses = matrix_to_cam_pose(c2ws).requires_grad_()
     opt = make_optimizer(ms, poses, lr_factor)
     losses = []
-    for _ in range(iters):
+    for it in range(iters):
+        if vis_hook is not None and it > 0 and it % vis_every == 0:
+            with torch.no_grad():
+                cur = torch.as_tensor(n_slots, device=poses.device)
+                pose = poses.detach().index_select(0, cur.reshape(1) - 1)
+                vis_hook(it, ms, cam_pose_to_matrix(pose)[0])
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(ms, poses, pose_mask, lines, n_slots, *imagery,
                        draws)
@@ -147,10 +193,11 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
 
     Returns map_frame(ms, store, est (n, 4, 4), color_u8 (H, W, 3),
     depth_u16 (H, W), inv_q, gt_c2w (4, 4), idx, draws, *, iters,
-    lr_factor, joint_opt, admit) -> losses (iters,) on the device.
-    ``ms``, ``store`` and ``est`` are updated in place; the packed store
-    takes the packet's bytes as they are.  Draws: the selector's, then
-    each iteration's (``loss_fn``).
+    lr_factor, joint_opt, admit, vis_hook=None, vis_every=1) -> losses
+    (iters,) on the device.  ``ms``, ``store`` and ``est`` are updated in
+    place; the packed store takes the packet's bytes as they are.
+    ``vis_hook``: the in-loop panels (``_optimize_window``).  Draws: the
+    selector's, then each iteration's (``loss_fn``).
     """
     loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
                                           packed)
@@ -158,7 +205,7 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
     def map_frame(ms: MapState, store: KeyframeStore, est, color_u8,
                   depth_u16, inv_q: float, gt_c2w, idx: int, draws, *,
                   iters: int, lr_factor: float, joint_opt: bool,
-                  admit: bool):
+                  admit: bool, vis_hook=None, vis_every: int = 1):
         count = store.count
         with torch.no_grad():
             if packed:
@@ -186,7 +233,7 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
         losses = _optimize_window(
             loss_fn, make_optimizer, ms, store, est, c2ws, pose_mask,
             slot_kf, slot_kf, n_slots, imagery, idx, draws, iters,
-            lr_factor, joint_opt)
+            lr_factor, joint_opt, vis_hook, vis_every)
         with torch.no_grad():
             # Admission: the scratch slot's imagery and poses go to slot
             # ``count``; without admission the poses stay in the scratch.
@@ -213,8 +260,8 @@ def make_window_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
 
     Returns window_map(ms, store, est, slot_kf (w_max,), n_slots,
     pose_mask (w_max,), win_lines (w_max,), gt_c2w, idx, draws, *, iters,
-    lr_factor, joint_opt, admit) -> losses (iters,) on the device.
-    Draws: each iteration's (``loss_fn``).
+    lr_factor, joint_opt, admit, vis_hook=None, vis_every=1) -> losses
+    (iters,) on the device.  Draws: each iteration's (``loss_fn``).
     """
     loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
                                           packed=True)
@@ -222,7 +269,7 @@ def make_window_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
     def window_map(ms: MapState, store: KeyframeStore, est, slot_kf,
                    n_slots, pose_mask, win_lines, gt_c2w, idx: int, draws,
                    *, iters: int, lr_factor: float, joint_opt: bool,
-                   admit: bool):
+                   admit: bool, vis_hook=None, vis_every: int = 1):
         with torch.no_grad():
             c2ws = store.est_c2w[slot_kf]
             is_cur = torch.arange(w_max, device=est.device) == n_slots - 1
@@ -231,7 +278,7 @@ def make_window_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
             loss_fn, make_optimizer, ms, store, est, c2ws, pose_mask,
             slot_kf, win_lines, n_slots,
             (store.cache_colors, store.cache_depths, store.cache_inv_q),
-            idx, draws, iters, lr_factor, joint_opt)
+            idx, draws, iters, lr_factor, joint_opt, vis_hook, vis_every)
         if admit:
             with torch.no_grad():
                 store.est_c2w[store.count] = est[idx]

@@ -17,9 +17,10 @@ its loop timing (``frame_start_wall``, ``frame_times``, ``drain_wall``,
 ``sync_after_frame``) and its bookkeeping: ``<output>/metrics.jsonl``,
 the periodic checkpoints and meshes (``mapping.ckpt_freq`` /
 ``mesh_freq``), the final ones, the heartbeat that ``run_torch.py
---supervise`` watches and the fault hook, and ``resume``.  On a CUDA
-device the prefetch thread stages each packet's uploads
-(``datasets.stage_packet``).  No visualizer or parallel modes.
+--supervise`` watches and the fault hook, and ``resume``; and the
+in-loop panels (``tracking/mapping.vis_freq``, ``vis_inside_freq``,
+``utils/visualizer.py``).  On a CUDA device the prefetch thread stages
+each packet's uploads (``datasets.stage_packet``).  No parallel modes.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from myslam_torch import resolve_device
+from myslam_torch.core.quaternion import cam_pose_to_matrix
 from myslam_torch.core.sampling import TorchDraws
 from myslam_torch.engine.camera import Camera
 from myslam_torch.engine.keyframes import KeyframeStore, \
@@ -41,10 +43,9 @@ from myslam_torch.engine.mapper import make_frame_mapper, \
     make_window_frame_mapper
 from myslam_torch.engine.tracker import make_group_tracker
 from myslam_torch.models.config import get_model
-from myslam_torch.models.planes import compute_bound, init_map_state, \
-    make_layout
+from myslam_torch.models.planes import compute_bound, init_map_state
 from myslam_torch.ops import cuda_sample
-from myslam_torch.render.renderer import SceneGeometry
+from myslam_torch.render.renderer import scene_from_cfg
 from myslam_torch.tools.cull_mesh import cull_mesh
 from myslam_torch.tools.eval_ate import evaluate_run
 from myslam_torch.utils import imageio
@@ -53,6 +54,11 @@ from myslam_torch.utils.datasets import PacketPrefetcher, Prefetcher, \
 from myslam_torch.utils.logger import latest_checkpoint, load_checkpoint, \
     save_checkpoint
 from myslam_torch.utils.mesher import Mesher
+from myslam_torch.utils.visualizer import FrameVisualizer
+
+# The panels' draw source is seeded with the run's seed plus this, so
+# that rendering a panel takes no number from the loop's draws.
+VIS_SEED_OFFSET = 7919
 
 
 class SLAMSystem:
@@ -80,23 +86,9 @@ class SLAMSystem:
         self.seed = int(seed)
         self.cam = Camera.from_cfg(cfg)
         self.bound = compute_bound(cfg)
-        c_dim = int(cfg["model"]["c_dim"])
-        pres, cres = cfg["planes_res"], cfg["c_planes_res"]
-        self.sdf_layout = make_layout(
-            self.bound, [pres["coarse"], pres["fine"]], c_dim)
-        self.color_layout = make_layout(
-            self.bound, [cres["coarse"], cres["fine"]], c_dim)
-        r = cfg["rendering"]
-        self.scene = SceneGeometry(
-            sdf_layout=self.sdf_layout,
-            color_layout=self.color_layout,
-            bound=tuple(map(tuple, self.bound.tolist())),
-            truncation=float(cfg["model"]["truncation"]),
-            n_stratified=int(r["n_stratified"]),
-            n_importance=int(r["n_importance"]),
-            perturb=bool(r["perturb"]),
-            color_topk=int(r.get("color_topk", 0)),
-        )
+        self.scene = scene_from_cfg(cfg)
+        self.sdf_layout = self.scene.sdf_layout
+        self.color_layout = self.scene.color_layout
 
         # The initial map comes from a CPU generator, so a seed gives the
         # same map on every device.
@@ -126,6 +118,22 @@ class SLAMSystem:
         self.window_size = int(m["mapping_window_size"])
         self.joint_opt_enabled = bool(m["joint_opt"])
         self.gt_camera = bool(cfg["tracking"].get("gt_camera", False))
+        # In-loop panels (JAX's gating, myslam_tpu/engine/scheduler.py):
+        # tracking panels of every tracking.vis_freq-th frame, mapping
+        # panels of every mapping.vis_freq-th mapped frame but frame 0
+        # under no_vis_on_first_frame.
+        self.no_vis_on_first_frame = bool(m.get("no_vis_on_first_frame",
+                                                True))
+        t = cfg["tracking"]
+        self.vis_draws = TorchDraws(self.seed + VIS_SEED_OFFSET, self.device)
+        self.track_vis = FrameVisualizer(
+            t["vis_freq"], t["vis_inside_freq"],
+            os.path.join(self.output, "tracking_vis"), self.scene, self.cam,
+            self.vis_draws, self.verbose)
+        self.map_vis = FrameVisualizer(
+            m["vis_freq"], m["vis_inside_freq"],
+            os.path.join(self.output, "mapping_vis"), self.scene, self.cam,
+            self.vis_draws, self.verbose)
 
         mapped = sorted(set(list(range(0, self.n_img, self.every_frame))
                             + [self.n_img - 1]))
@@ -230,13 +238,60 @@ class SLAMSystem:
         t_dev = time.perf_counter()
         return out, (t_host - t0) * 1e3, (t_dev - t0) * 1e3
 
+    def _needs_full(self, idx: int) -> bool:
+        """Frames whose full imagery the packet carries: mapped frames
+        (keyframe store, mapping rays) and the panels' frames."""
+        return (idx % self.every_frame == 0 or idx == self.n_img - 1
+                or idx % self.track_vis.freq == 0
+                or idx % self.map_vis.freq == 0)
+
     def _make_packet(self, dataset, idx: int):
         t = self.cfg["tracking"]
-        need_full = idx % self.every_frame == 0 or idx == self.n_img - 1
         return build_packet(
             dataset, idx, iters=int(t["iters"]), n_px=int(t["pixels"]),
             ie_h=int(t["ignore_edge_H"]), ie_w=int(t["ignore_edge_W"]),
-            need_full=need_full, seed=self.seed)
+            need_full=self._needs_full(idx), seed=self.seed)
+
+    # -- panels ----------------------------------------------------------------
+
+    @staticmethod
+    def _gt_frame(pkt) -> tuple:
+        """A full packet's input depth (H, W) and color (H, W, 3) in
+        [0, 1], float32 on the host, as the store dequantizes them."""
+        color_u8, depth_u16 = pkt.imagery_host()
+        return (depth_u16.astype(np.float32) * np.float32(pkt.depth_inv_q),
+                color_u8.astype(np.float32) / np.float32(255.0))
+
+    def _maybe_track_vis(self, idx: int, pkt, iter_poses) -> None:
+        """Tracking panels of frame idx at iterations 0, inside_freq, ...
+        at each iteration's pre-update pose (``iter_poses`` (iters, 7)):
+        the map is frozen while a group is tracked, so panel k rendered
+        after the group is the one of iteration k."""
+        if idx % self.track_vis.freq != 0 or pkt.color_u8 is None:
+            return
+        gt_depth, gt_color = self._gt_frame(pkt)
+        c2ws = cam_pose_to_matrix(iter_poses)
+        for it in range(0, iter_poses.shape[0], self.track_vis.inside_freq):
+            self.track_vis.save_imgs(idx, it, gt_depth, gt_color, c2ws[it],
+                                     self.map_state)
+
+    def _make_map_vis_hook(self, idx: int, pkt):
+        """Mapping panels of frame idx: iteration 0's now, against the map
+        before mapping at the tracked pose; then the mapper's hook, called
+        at every multiple m of inside_freq below the iteration count with
+        the map after m iterations.  None when idx has no panels."""
+        if (idx % self.map_vis.freq != 0
+                or (idx == 0 and self.no_vis_on_first_frame)
+                or pkt.color_u8 is None):
+            return None
+        gt_depth, gt_color = self._gt_frame(pkt)
+        self.map_vis.save_imgs(idx, 0, gt_depth, gt_color, self.est[idx],
+                               self.map_state)
+
+        def hook(m, ms, c2w):
+            self.map_vis.save_imgs(idx, m, gt_depth, gt_color, c2w, ms)
+
+        return hook
 
     # -- tracking and mapping --------------------------------------------------
 
@@ -259,12 +314,14 @@ class SLAMSystem:
                 stack("px_i", torch.int64), stack("px_j", torch.int64),
                 stack("px_color"), stack("px_depth"), self.draws)
 
-        (_, loss_first, loss_best), host_ms, ms = self._timed(run)
-        for g, (_, _, rec) in enumerate(buf):
+        (_, loss_first, loss_best, iter_poses), host_ms, ms = self._timed(
+            run)
+        for g, (idx, pkt, rec) in enumerate(buf):
             rec["track_host_ms"] = host_ms / len(buf)
             rec["track_ms"] = ms / len(buf)
             rec["track_loss_first"] = loss_first[g]
             rec["track_loss_best"] = loss_best[g]
+            self._maybe_track_vis(idx, pkt, iter_poses[g])
             if rec is not open_rec:
                 self._log_metrics(rec)
 
@@ -279,15 +336,19 @@ class SLAMSystem:
         lr_factor = self._lr_first_factor if first else self._lr_factor
 
         def run():
+            # The mapping panels fall within the frame's map_ms.
+            vis = {"vis_hook": self._make_map_vis_hook(idx, pkt),
+                   "vis_every": self.map_vis.inside_freq}
             if self.store.host_mode:
                 return self._map_frame_host(mapper, idx, pkt, iters,
-                                            lr_factor, joint_opt, admit)
+                                            lr_factor, joint_opt, admit,
+                                            vis)
             return mapper(
                 self.map_state, self.store, self.est,
                 self._to_dev(pkt.color_u8), self._to_dev(pkt.depth_u16),
                 pkt.depth_inv_q, self._to_dev(pkt.gt_c2w), idx, self.draws,
                 iters=iters, lr_factor=lr_factor, joint_opt=joint_opt,
-                admit=admit)
+                admit=admit, **vis)
 
         losses, host_ms, ms = self._timed(run)
         if admit and not self.store.host_mode:
@@ -318,7 +379,8 @@ class SLAMSystem:
         return (slot_kf, n_slots, pose_mask), (host[:-1], int(host[-1]))
 
     def _map_frame_host(self, mapper, idx: int, pkt, iters: int,
-                        lr_factor: float, joint_opt: bool, admit: bool):
+                        lr_factor: float, joint_opt: bool, admit: bool,
+                        vis: dict):
         """A mapped frame over the host-staged store: the packet into the
         scratch line, selection, the window's missing slots uploaded into
         the line cache, the iterations over the cache slab, then the
@@ -335,7 +397,7 @@ class SLAMSystem:
             self.map_state, st, self.est, slot_kf, n_slots, pose_mask,
             self._to_dev(win_lines), self._to_dev(pkt.gt_c2w), idx,
             self.draws, iters=iters, lr_factor=lr_factor,
-            joint_opt=joint_opt, admit=admit)
+            joint_opt=joint_opt, admit=admit, **vis)
         if admit:
             # The host store takes the packet's numpy imagery: a staged
             # packet's device copy is not read back.

@@ -114,7 +114,9 @@ def make_group_tracker(cfg: dict, scene: SceneGeometry, cam: Camera):
 
     Returns track_group(ms, est (n, 4, 4) [written in place at
     idx0..idx0+G-1], idx0, px_i (G, iters, n), px_j, px_color,
-    px_depth, draws) -> (c2ws (G, 4, 4), loss_first (G,), loss_best (G,)).
+    px_depth, draws) -> (c2ws (G, 4, 4), loss_first (G,), loss_best (G,),
+    iter_poses (G, iters, 7)): each iteration's pre-update pose, what the
+    tracking panels render.
     """
     t = cfg["tracking"]
     const_speed = bool(t.get("const_speed_assumption", True))
@@ -126,17 +128,20 @@ def make_group_tracker(cfg: dict, scene: SceneGeometry, cam: Camera):
         prev = matrix_to_cam_pose(est[idx0 - 1])
         prev_prev = (matrix_to_cam_pose(est[idx0 - 2]) if idx0 >= 2
                      else prev)
-        poses, loss_first, loss_best = [], [], []
+        poses, loss_first, loss_best, iter_poses = [], [], [], []
         for g in range(px_i.shape[0]):
             pose_init = 2.0 * prev - prev_prev if const_speed else prev
-            best, losses, _ = core(ms, quads, pose_init, px_i[g], px_j[g],
-                                   px_color[g], px_depth[g], draws)
+            best, losses, it_poses = core(ms, quads, pose_init, px_i[g],
+                                          px_j[g], px_color[g], px_depth[g],
+                                          draws)
             poses.append(best)
             loss_first.append(losses[0])
             loss_best.append(losses.min())
+            iter_poses.append(it_poses)
             prev_prev, prev = prev, best
         c2ws = cam_pose_to_matrix(torch.stack(poses))
         est[idx0:idx0 + len(poses)] = c2ws
-        return c2ws, torch.stack(loss_first), torch.stack(loss_best)
+        return (c2ws, torch.stack(loss_first), torch.stack(loss_best),
+                torch.stack(iter_poses))
 
     return track_group

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from myslam_torch.core.geometry import normalize_3d_coordinate, \
-    ray_aabb_exit_t
+    ray_aabb_exit_t, rays_full_image
 from myslam_torch.core.sampling import (
     depth_guided_z_vals,
     sample_pdf,
@@ -24,7 +24,8 @@ from myslam_torch.core.sampling import (
 )
 from myslam_torch.models.decoders import decode_rgb_corners, \
     decode_sdf_corners
-from myslam_torch.models.planes import MapState, PlaneLayout
+from myslam_torch.models.planes import MapState, PlaneLayout, \
+    compute_bound, make_layout
 from myslam_torch.ops.composite import (
     composite,
     composite_topk,
@@ -75,6 +76,25 @@ class SceneGeometry:
     @property
     def n_samples(self) -> int:
         return self.n_stratified + self.n_importance
+
+
+def scene_from_cfg(cfg: dict) -> SceneGeometry:
+    """The scene of a config: its bound, the SDF and color plane layouts
+    (coarse and fine), the truncation and the sampling schedule."""
+    bound = compute_bound(cfg)
+    c_dim = int(cfg["model"]["c_dim"])
+    pres, cres = cfg["planes_res"], cfg["c_planes_res"]
+    r = cfg["rendering"]
+    return SceneGeometry(
+        sdf_layout=make_layout(bound, [pres["coarse"], pres["fine"]], c_dim),
+        color_layout=make_layout(bound, [cres["coarse"], cres["fine"]],
+                                 c_dim),
+        bound=tuple(map(tuple, bound.tolist())),
+        truncation=float(cfg["model"]["truncation"]),
+        n_stratified=int(r["n_stratified"]),
+        n_importance=int(r["n_importance"]),
+        perturb=bool(r["perturb"]),
+        color_topk=int(r.get("color_topk", 0)))
 
 
 class FieldQueries:
@@ -161,25 +181,43 @@ def build_z_vals_core(draws, scene: SceneGeometry, rays_o, rays_d, gt_depth,
     return torch.where((gt_depth > 0)[:, None], z_depth, z_nodepth)
 
 
-def render_core(draws, scene: SceneGeometry, rays_o, rays_d, gt_depth,
-                importance: bool, q: FieldQueries):
-    """Render a ray batch: (depth (R,), color (R, 3), sdf (R, N),
-    z_vals (R, N))."""
+def sample_points(draws, scene: SceneGeometry, rays_o, rays_d, gt_depth,
+                  importance: bool, q: FieldQueries):
+    """render_core's first stage: the sample depths z_vals (R, N), their
+    world points (R, N, 3) and normalized points (R * N, 3)."""
     z_vals = build_z_vals_core(draws, scene, rays_o, rays_d, gt_depth,
                                importance, q)
     bound = scene.bound_tensor(rays_o.device)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     p_nor = normalize_3d_coordinate(pts.reshape(-1, 3), bound)
-    sdf = q.sdf(p_nor).reshape(z_vals.shape)
+    return z_vals, pts, p_nor
+
+
+def shade(scene: SceneGeometry, q: FieldQueries, sdf, z_vals, pts, p_nor):
+    """render_core's last stage: alpha from the SDF (R, N), the color
+    field at the composited samples (the top K, or all), compositing ->
+    (depth (R,), color (R, 3))."""
     alpha = sdf2alpha(sdf, q.beta)
     K = int(scene.color_topk)
     if K and K < scene.n_samples:
-        depth, color = composite_topk(
+        bound = scene.bound_tensor(pts.device)
+        return composite_topk(
             alpha, z_vals, pts,
             lambda p: q.rgb(normalize_3d_coordinate(p, bound)), K)
-        return depth, color, sdf, z_vals
     rgb = q.rgb(p_nor).reshape(z_vals.shape + (3,))
     depth, color, _ = composite(alpha, z_vals, rgb)
+    return depth, color
+
+
+def render_core(draws, scene: SceneGeometry, rays_o, rays_d, gt_depth,
+                importance: bool, q: FieldQueries):
+    """Render a ray batch: (depth (R,), color (R, 3), sdf (R, N),
+    z_vals (R, N)).  The stages: sample_points, the SDF field at every
+    sample, shade."""
+    z_vals, pts, p_nor = sample_points(draws, scene, rays_o, rays_d,
+                                       gt_depth, importance, q)
+    sdf = q.sdf(p_nor).reshape(z_vals.shape)
+    depth, color = shade(scene, q, sdf, z_vals, pts, p_nor)
     return depth, color, sdf, z_vals
 
 
@@ -219,3 +257,62 @@ def query_raw(ms: MapState, scene: SceneGeometry, pts, sdf_quad=None,
     rgb = query_rgb(ms, scene, p_nor, color_quad)
     return torch.cat([rgb, sdf[:, None]], dim=-1).reshape(
         shape[:-1] + (4,))
+
+
+def make_image_renderer(scene: SceneGeometry, cam,
+                        ray_batch_size: int = 40960):
+    """The full-frame renderer without gradients: every pixel's ray, in
+    chunks of ``ray_batch_size``.
+
+    The pixels are padded to whole chunks with rays of origin 0,
+    direction 1 and depth 0, as the JAX package pads them, so every
+    chunk's draws have its shapes (at 680x1200, 20 chunks of 40,960 with
+    3,200 pad rays).  Both atlases are packed to float32
+    quads once per call; depth-less rays (the pad's too) take the coarse
+    no-gradient SDF pass (``importance``), and color is composited over
+    every sample (no top-K).  Each chunk launches the sample three times:
+    the coarse pass, then the SDF and the color field at every sample.
+    Intermediates are released chunk by chunk.
+
+    Returns render_img(ms, c2w (4, 4), gt_depth (H, W), draws) ->
+    (depth (H, W), color (H, W, 3)) on c2w's device.  Draws, per chunk in
+    order: build_z_vals_core's.
+    """
+    n_px = cam.H * cam.W
+    # A chunk is never larger than the image (JAX pads a small image up
+    # to one whole chunk: its pad rays are rendered and dropped).
+    ray_batch_size = min(ray_batch_size, n_px)
+    n_chunks = -(-n_px // ray_batch_size)
+    pad = n_chunks * ray_batch_size - n_px
+
+    @torch.no_grad()
+    def render_img(ms: MapState, c2w, gt_depth, draws):
+        dev = c2w.device
+        rays_o, rays_d = rays_full_image(cam.H, cam.W, cam.fx, cam.fy,
+                                         cam.cx, cam.cy, c2w)
+        rays_o = torch.cat([rays_o.reshape(-1, 3),
+                            torch.zeros((pad, 3), device=dev)])
+        rays_d = torch.cat([rays_d.reshape(-1, 3),
+                            torch.ones((pad, 3), device=dev)])
+        depth_flat = torch.cat([gt_depth.reshape(-1).to(torch.float32),
+                                torch.zeros((pad,), device=dev)])
+        sdf_quad = pack_quad(ms.sdf_atlas, scene.sdf_layout)
+        color_quad = pack_quad(ms.color_atlas, scene.color_layout)
+        q = make_queries(ms, scene, sdf_quad=sdf_quad, color_quad=color_quad)
+        depths, colors = [], []
+        for c in range(n_chunks):
+            s = slice(c * ray_batch_size, (c + 1) * ray_batch_size)
+            ro, rd = rays_o[s], rays_d[s]
+            z, pts, p_nor = sample_points(draws, scene, ro, rd,
+                                          depth_flat[s], True, q)
+            sdf = q.sdf(p_nor).reshape(z.shape)
+            rgb = q.rgb(p_nor).reshape(z.shape + (3,))
+            del pts, p_nor
+            depth, color, _ = composite(sdf2alpha(sdf, q.beta), z, rgb)
+            depths.append(depth)
+            colors.append(color)
+        depth_img = torch.cat(depths)[:n_px].reshape(cam.H, cam.W)
+        color_img = torch.cat(colors)[:n_px].reshape(cam.H, cam.W, 3)
+        return depth_img, color_img
+
+    return render_img

@@ -17,7 +17,11 @@ vector atomics sum in another order than ``index_add_``.  K1 and K3
 walk the same point orders (and a run that crosses a tile's end), 1-4
 levels, c_dim 8/32/64 and both quad types, held against the plain
 version and each other at the same limit.  K1 also on the meshing
-path's grid-ordered volume chunks, at the same limit.  Marching, the
+path's grid-ordered volume chunks and on a chunk of the full-frame image
+renderer (1,638,400 ray-ordered points, f32 quad), at the same limit;
+the image renderer itself on the card against the CPU at atol 1e-4 (the
+decoders' matmuls and the compositing's products round in another
+order on the card).  Marching, the
 depth rasterizer and the mesh culling's visibility run on the card and
 the CPU with the same rounding (elementwise operations, a stable sort, a
 minimum): held bit for bit.
@@ -393,6 +397,81 @@ def test_k1_on_grid_ordered_volume_chunks(dev, which):
     assert cuda_sample.LAUNCHES["plane_sample_fwd"] == before + 1
     _assert_within(out, cuda_sample.plane_sample_fwd_ref(quad, layout, p),
                    f"K1 on volume chunk {which}")
+
+
+@pytest.mark.cuda
+def test_k1_on_an_image_renderer_chunk(dev):
+    """K1 at the full-frame image renderer's fine samples: one chunk of
+    40,960 rays of room.yaml's frame 0 at all 40 samples (1,638,400
+    ray-ordered points), f32 quad of the SDF atlas at c_dim 32."""
+    cfg = _room()
+    layout = layouts(cfg)["sdf"]
+    p = loop_points(cfg, 40960, dev, seed=5)
+    assert p.shape == (1_638_400, 3)
+    rng = np.random.default_rng(19)
+    atlas = torch.tensor(0.01 * rng.normal(size=(layout.total_rows, 32)),
+                         dtype=torch.float32, device=dev)
+    quad = pack_quad(atlas, layout).contiguous()
+    before = cuda_sample.LAUNCHES["plane_sample_fwd"]
+    out = cuda_sample.plane_sample_fwd(quad, layout, p)
+    torch.cuda.synchronize()
+    assert cuda_sample.LAUNCHES["plane_sample_fwd"] == before + 1
+    _assert_within(out, cuda_sample.plane_sample_fwd_ref(quad, layout, p),
+                   "K1 on an image chunk")
+
+
+class _DeviceDraws:
+    """A replayed draw source whose draws land on ``dev``."""
+
+    def __init__(self, draws, dev):
+        self.draws, self.dev = draws, dev
+
+    def uniform(self, shape):
+        return self.draws.uniform(shape).to(self.dev)
+
+
+@pytest.mark.cuda
+def test_image_renderer_on_the_card_matches_the_cpu(dev):
+    """make_image_renderer at 24x32 in chunks of 200 rays (4 chunks, 32
+    pad rays; depth holes take the coarse pass) on the card, through K1
+    three times per chunk, against the CPU's plain path on the same map
+    and draws."""
+    from myslam_torch.core.sampling import ReplayDraws
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.models.config import get_model
+    from myslam_torch.models.planes import init_map_state
+    from myslam_torch.render.renderer import make_image_renderer, \
+        scene_from_cfg
+
+    cfg = _room(c_dim=C_DIM)
+    cfg["cam"].update(H=24, W=32, fx=20.0, fy=20.0, cx=15.5, cy=11.5)
+    cfg["planes_res"].update(coarse=0.48, fine=0.24)
+    cfg["c_planes_res"].update(coarse=0.48, fine=0.12)
+    cfg["rendering"]["perturb"] = False
+    cam, scene = Camera.from_cfg(cfg), scene_from_cfg(cfg)
+    rng = np.random.default_rng(23)
+    depth = rng.uniform(0.5, 3.0, (24, 32)).astype(np.float32)
+    depth[::3, ::4] = 0.0
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [2.0, 1.5, 1.2]
+    pdf = [rng.uniform(size=(200, scene.n_importance)).astype(np.float32)
+           for _ in range(4)]
+    out = {}
+    for where in ("cpu", dev):
+        gen = torch.Generator().manual_seed(3)
+        ms = init_map_state(gen, scene.sdf_layout, scene.color_layout,
+                            get_model(cfg, gen), std=0.1, device=where)
+        render = make_image_renderer(scene, cam, ray_batch_size=200)
+        before = cuda_sample.LAUNCHES["plane_sample_fwd"]
+        d, c = render(ms, torch.tensor(c2w, device=where),
+                      torch.tensor(depth, device=where),
+                      _DeviceDraws(ReplayDraws(pdf), where))
+        out[str(where)] = (d.cpu(), c.cpu())
+        launched = cuda_sample.LAUNCHES["plane_sample_fwd"] - before
+        assert launched == (12 if where == dev else 0)
+    (dc, cc), (dg, cg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(dg, dc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(cg, cc, atol=1e-4, rtol=0)
 
 
 def _sphere_volume(n, r=0.6):

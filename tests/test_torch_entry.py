@@ -4,10 +4,12 @@
     a finite ATE and writes the final mesh and its culled copy;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
   * no module of ``myslam_torch/``, nor ``chip_smoke.py``,
-    ``run_torch.py`` or ``bench_torch.py``, imports JAX, the JAX package,
-    OpenCV or Pillow (checked on the sources' import statements): the
-    card's machine has neither image library, so the port reads its
-    images with its own codec.
+    ``run_torch.py``, ``bench_torch.py`` or ``visualizer_torch.py``,
+    imports JAX, the JAX package, OpenCV, Pillow, matplotlib or open3d
+    (checked on the sources' import statements): the port reads and
+    writes its images with its own codec and draws in numpy.  The only
+    exception: ``utils/frontend.py``'s open3d and matplotlib backends
+    import their library inside the backend's function.
 """
 
 import ast
@@ -21,35 +23,62 @@ import yaml
 torch.set_num_threads(2)  # several test workers share the CPU
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "myslam_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "myslam_tpu", "cv2", "PIL",
+             "matplotlib", "open3d")
+# The interactive backends' lazy imports: (file, function, module).
+LAZY_BACKENDS = {("myslam_torch/utils/frontend.py", "_open3d_loop", "open3d"),
+                 ("myslam_torch/utils/frontend.py", "_matplotlib_loop",
+                  "matplotlib")}
 
 
 def _port_sources():
     paths = [os.path.join(REPO, name) for name in
-             ("chip_smoke.py", "run_torch.py", "bench_torch.py")]
+             ("chip_smoke.py", "run_torch.py", "bench_torch.py",
+              "visualizer_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "myslam_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
 
 
+def _imports(tree):
+    """(enclosing function or None, imported module) of every import."""
+    out = []
+
+    def visit(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name if fn is None else fn)
+                continue
+            if isinstance(child, ast.Import):
+                out.extend((fn, a.name) for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                out.append((fn, child.module or ""))
+            visit(child, fn)
+
+    visit(tree, None)
+    return out
+
+
 def test_port_never_imports_jax_or_the_jax_package():
-    """Nor OpenCV or Pillow."""
+    """Nor OpenCV, Pillow, matplotlib or open3d, but in the frontend's
+    two interactive backends."""
     sources = _port_sources()
     assert len(sources) > 20
-    bad = []
+    bad, lazy = [], set()
     for path in sources:
+        rel = os.path.relpath(path, REPO)
         with open(path) as f:
             tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
+        for fn, name in _imports(tree):
+            top = name.split(".")[0]
+            if top not in FORBIDDEN:
                 continue
-            bad += [f"{os.path.relpath(path, REPO)}: {n}" for n in names
-                    if n.split(".")[0] in FORBIDDEN]
+            if (rel, fn, top) in LAZY_BACKENDS:
+                lazy.add((rel, fn, top))
+            else:
+                bad.append(f"{rel}: {name} (in {fn or 'the module'})")
     assert not bad, bad
+    assert lazy == LAZY_BACKENDS
 
 
 def _tiny_config(tmp_path):

@@ -266,7 +266,7 @@ def test_group_tracker_matches_jax():
         return np.stack([getattr(p, name) for p in pkts])
 
     jgroup = jtracker.make_group_tracker(cfg, pair.jscene, pair.jcam, 2)
-    jest, jc2ws, jfirst, jbest, _ = jgroup(
+    jest, jc2ws, jfirst, jbest, jiter = jgroup(
         pair.jms, jnp.asarray(est), jnp.int32(2), stack("px_i"),
         stack("px_j"), stack("px_color"), stack("px_depth"), key)
 
@@ -279,7 +279,7 @@ def test_group_tracker_matches_jax():
     replay = ReplayDraws(draws)
     test = torch.tensor(est)
     tgroup = ttracker.make_group_tracker(cfg, pair.scene, pair.cam)
-    c2ws, first, best = tgroup(
+    c2ws, first, best, iter_poses = tgroup(
         pair.ms, test, 2, torch.tensor(stack("px_i").astype(np.int64)),
         torch.tensor(stack("px_j").astype(np.int64)),
         torch.tensor(stack("px_color")), torch.tensor(stack("px_depth")),
@@ -289,6 +289,7 @@ def test_group_tracker_matches_jax():
     np.testing.assert_allclose(N(test), np.asarray(jest), atol=1e-4)
     np.testing.assert_allclose(N(first), np.asarray(jfirst), rtol=1e-4)
     np.testing.assert_allclose(N(best), np.asarray(jbest), rtol=1e-4)
+    np.testing.assert_allclose(N(iter_poses), np.asarray(jiter), atol=1e-4)
 
 
 # -- the slice: engine/mapper.py then engine/tracker.py -------------------------
