@@ -79,12 +79,14 @@ Phases, one JSON line each:
                      from the host-side depths, with its stage seconds
                      and K1 launches;
  10. host_evict   -- the host-staged store's line cache under eviction:
-                     phase 9's run at 28 frames with the configured cache
-                     (31 lines, never evicts) and the smallest (23 lines:
-                     admissions evict, later windows upload again); the
-                     evicting run must miss, keep every bound line equal
-                     to its host slot, and stay within STORE_GATE_M per
-                     frame of the other;
+                     phase 9's run at 16 frames, a window of 8 keyframes,
+                     20 tracking iterations and 200 mapping iterations on
+                     frame 0, with the configured cache
+                     (a line per slot, never evicts) and the smallest (11
+                     lines: admissions evict, later windows upload again);
+                     the evicting run must miss, keep every bound line
+                     equal to its host slot, and stay within STORE_GATE_M
+                     per frame of the other;
  11. codec        -- the port's image codec on this host (utils/imageio.py,
                      csrc/imagecodec.cpp): a full-width 680x1200 render's
                      uint8 RGB and its uint16 depth through PNG byte for
@@ -145,6 +147,41 @@ Phases, one JSON line each:
 Phase 2 also holds K1 and K2 at the TUM schedule's shapes (280,000
 mapping and tracking points, bf16 quads).
 
+Between phases 4 and 5 the gang runs, GANG_RANKS ranks (one process
+each, ``myslam_torch/parallel/multiproc.launch``) sharing the card over
+gloo, on room.yaml at full width for 13 frames; every rank counts its
+K1/K2 launches from zero around its loop, and each phase fails unless
+every rank finishes with rank 0's trajectory bit for bit, ATE under
+2 cm, K1/K2 launches as its iterations say and one gradient all-reduce
+per mapping iteration:
+
+  * K2 without the quad gradient at the reduced pose system's call (one
+    pullback of keyframe-sharded BA's Schur system on phase slam's map
+    and keyframes, one rank's 2,000 rays) against its plain version;
+  * dp            -- ray data parallelism (``parallel.devices: 2``): the
+                     backend, per-rank launches, all-reduces per mapped
+                     frame, their bytes and mean ms, tracked- and
+                     mapped-frame ms beside phase slam's, peak memory;
+                     within DP_GATE_M of phase slam's trajectory;
+  then side by side (none of their times is a recorded number):
+  * kf_schur      -- keyframe-sharded BA (``kf_shards: 2``, ``pose_solver:
+                     schur``) on room.yaml's schedule (no joint frame in
+                     13: every solve runs with the poses frozen): each
+                     rank's keyframe imagery at most half the single-rank
+                     store's plus a slot, the pose system's K1/K2
+                     launches, and a checkpoint (imagery gathered to rank
+                     0) costing the other rank at most a slot of device
+                     memory;
+  * kf_schur_every -- the same on an every-frame schedule (joint BA from
+                     frame 5), where the solve must move the stored
+                     keyframes; ATE under KF_SCHUR_EVERY_ATE_CM;
+  * dp_again      -- phase dp's run once more (the pair's distance is the
+                     gang's spread, within DP_GATE_M);
+  * gang_resume   -- ``run_torch.py --launch 2 --supervise`` on phase dp's
+                     config with rank 1 killed at frame 9: one restart,
+                     both ranks resumed at frame 9, the final trajectory
+                     within GANG_RESUME_GATE_M of phase dp's.
+
 The build fails the run if ptxas reports a register spill in K1, K2 or
 K3.  Then the card's name and power limit, the kernels line (K1's, K2's
 and K3's times at the mapping SDF sample on uniform points, and as
@@ -158,7 +195,11 @@ phases 7, 9 and 10 as ``launches_slam_packed`` / ``_host_staged`` /
 ``launches_replica_layout`` / ``launches_tum_layout``; K1's at the
 image renderer's chunk as ``ms_image`` / ``ms_image_graph`` with its
 bound, plain and library times, and K1's and K2's launches in phase 14
-as ``launches_vis``), and last
+as ``launches_vis``; K1's and K2's launches per rank in the gang's
+phases as ``launches_dp``, ``launches_kf_schur`` (the pose system's
+alone as ``launches_kf_schur_pose_system``) and
+``launches_gang_resume``, and K2's at the Schur pullback as
+``ms_schur_p_grad_only``), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -173,6 +214,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 N_FRAMES = 13
@@ -210,8 +252,15 @@ STORE_FRAMES = 6
 # run-to-run noise, which phase 8 measures and prints (PERF.md: 0.28 to
 # 1.52 mm between two packed runs).
 STORE_GATE_M = 0.005
-# Phase 10's cut: more keyframes than the smallest cache has lines.
-EVICT_FRAMES = 28
+# Phase 10's cut: a window of 8 keyframes (w_max 10, so the smallest cache
+# has 11 lines) and 16 frames, so that frames 11-15 admit past the lines
+# (the committed window of 20 needs 28 frames for the same eviction), 20
+# tracking iterations per frame (the store sees none of them) and 200
+# mapping iterations on frame 0 (whose window holds one keyframe).
+EVICT_WINDOW = 8
+EVICT_FRAMES = 16
+EVICT_TRACK_ITERS = 20
+EVICT_ITERS_FIRST = 200
 # The TUM schedule's samples (5,000 rays at all 48+8 samples, bf16 quads;
 # color_topk 0): mapping's SDF and color samples, and tracking's.
 TUM_CASES = (("sdf", 5000, 0, ("bfloat16",)),
@@ -264,10 +313,64 @@ IMAGE_CHUNK_INDEX = 10
 # per ray count.
 COMPONENT_ITERS = 10
 RAYSWEEP_REPS = 2
+# The gang (phases dp, dp_again, kf_schur, gang_resume): room.yaml at full
+# width over GANG_RANKS ranks, one process each, sharing the card.
+GANG_RANKS = 2
+GANG_KILL = f"{KILL_FRAME}:1"  # rank 1 dies at frame 9
+# Gates from the gang's own spread on the card, 3x the largest per-frame
+# distance measured between phases dp and dp_again, two uninterrupted
+# runs of one seed (3.0-6.2 mm over four runs, PERF.md): the ray-DP run's
+# distance from phase slam's single-rank run (its renderer jitter is drawn
+# at the local batch's shape, as JAX's is: another realization), the pair's
+# own, and the supervised gang's from the uninterrupted one.
+DP_GATE_M = 0.0186
+GANG_RESUME_GATE_M = 0.0186
+# Phase kf_schur_every: kf_schur on an every-frame schedule, so that joint
+# BA turns on at frame 5 and the reduced (Schur) solve moves the window's
+# poses in frames 5-12.  Its ATE gate: the reference's solve drifts the
+# window's poses (2.0-2.2 cm from 0.7 cm in three frames at 48x64, the port
+# within 1e-6 of it: tests/test_torch_parallel_schur.py), and the card read
+# 1.911 and 2.438 cm (PERF.md), so the other phases' 2 cm does not hold the
+# method; a broken solve leaves the room (15-20 cm a solve at 24x32).
+KF_SCHUR_EVERY = {"every_frame": 1, "keyframe_every": 1}
+KF_SCHUR_EVERY_ATE_CM = 4.0
+# The least that phase kf_schur_every's mapping must move a stored
+# keyframe in some frame: the solve moved the poses.
+BA_MOVE_MIN_M = 1e-4
+EMIT_LOCK = threading.Lock()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    with EMIT_LOCK:  # phases that run side by side print whole lines
+        print(line, flush=True)
+
+
+class Background:
+    """``fn(*args)`` in a thread; ``join()`` returns its result or raises
+    what it raised."""
+
+    def __init__(self, fn, *args):
+        self._out: dict = {}
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:  # raised again by join()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Wait for ``fn`` to end, whatever it returned or raised."""
+        self._thread.join()
+
+    def join(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1295,7 +1398,10 @@ def check_cache(store) -> int:
 
 def run_host_evict(floor_m: float) -> dict:
     """Phase host_evict: the host-staged store on TUM_CONFIG cut to
-    EVICT_FRAMES frames, two runs of one seed: the configured cache (one
+    EVICT_FRAMES frames, a window of EVICT_WINDOW keyframes,
+    EVICT_TRACK_ITERS tracking iterations and EVICT_ITERS_FIRST mapping
+    iterations on frame 0, two runs of one seed: the configured cache
+    (one
     line per slot and the scratch line: nothing is evicted) and the
     smallest (``host_cache_lines: 1`` clamps to w_max + 1 lines, so
     admissions evict and later windows upload evicted slots again while
@@ -1305,9 +1411,11 @@ def run_host_evict(floor_m: float) -> dict:
     slot's host imagery byte for byte."""
     runs = {}
     for name, lines in (("full", None), ("min", 1)):
-        rec, slam = run_slam(
-            tum_config("host_staged", EVICT_FRAMES, lines),
-            "host_evict_" + name, TUM_CONFIG)
+        cfg = tum_config("host_staged", EVICT_FRAMES, lines)
+        cfg["mapping"]["mapping_window_size"] = EVICT_WINDOW
+        cfg["tracking"]["iters"] = EVICT_TRACK_ITERS
+        cfg["mapping"]["iters_first"] = EVICT_ITERS_FIRST
+        rec, slam = run_slam(cfg, "host_evict_" + name, TUM_CONFIG)
         runs[name] = {
             "est": slam.estimates, "cache_lines": slam.store.cache_lines,
             "cache_misses": slam.store.cache_misses,
@@ -1330,7 +1438,9 @@ def run_host_evict(floor_m: float) -> dict:
         raise AssertionError(f"host_evict: evicting run {gap} m from the "
                              f"other; two packed runs {floor_m} m")
     out = {"phase": "host_evict", "config": TUM_CONFIG,
-           "cut": f"{EVICT_FRAMES} frames",
+           "cut": f"{EVICT_FRAMES} frames, a window of {EVICT_WINDOW}, "
+                  f"{EVICT_TRACK_ITERS} tracking iterations, "
+                  f"{EVICT_ITERS_FIRST} on frame 0",
            "runs": {k: {kk: v for kk, v in r.items() if kk != "est"}
                     for k, r in runs.items()},
            "max_translation_diff_evicting_m": float(gap.max()),
@@ -1836,6 +1946,343 @@ def run_raysweep() -> dict:
     return out
 
 
+def gang_config(name: str, parallel: dict,
+                mapping: dict | None = None) -> str:
+    """room.yaml at full width cut to N_FRAMES frames under ``parallel``,
+    a checkpoint every 4 frames and no periodic mesh; its output folder
+    emptied.  Returns the config file's path."""
+    root = os.path.abspath(os.path.join("output", "chip_smoke", name))
+    shutil.rmtree(root, ignore_errors=True)
+    return write_config(root + ".yaml", {
+        "inherit_from": os.path.abspath("configs/Synthetic/room.yaml"),
+        "data": {"n_frames": N_FRAMES, "output": root},
+        "mapping": {"ckpt_freq": 4, "mesh_freq": 10 ** 6,
+                    **(mapping or {})},
+        "parallel": parallel})
+
+
+def gang_expected(rec: dict) -> dict:
+    """K1 and K2 launches one rank's loop must make, the reduced pose
+    system's apart: SAMPLES_PER_ITER of each per tracking and mapping
+    iteration, and K1 once more per importance iteration."""
+    its = (rec["tracked_frames"] * rec["track_iters"]
+           + sum(rec["map_iters"]))
+    coarse = sum(n for n, imp in zip(rec["map_iters"], rec["map_importance"])
+                 if imp)
+    return {"plane_sample_fwd": SAMPLES_PER_ITER * its + coarse,
+            "plane_sample_bwd": SAMPLES_PER_ITER * its}
+
+
+def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0) -> list:
+    """SLAMSystem's loop on ``config`` over GANG_RANKS ranks on the card
+    (``multiproc.launch``, ``run_system``: each rank counts its K1/K2
+    launches from zero around the loop).  Every rank must finish, hold
+    rank 0's trajectory bit for bit, stay under ``ate_gate_cm`` ATE,
+    launch K1/K2 as its iterations say, and make one gradient all-reduce
+    per mapping iteration.  Emits one line per rank; returns the ranks'
+    records."""
+    import numpy as np
+
+    from myslam_torch.parallel import multiproc
+
+    t0 = time.perf_counter()
+    recs = multiproc.launch(GANG_RANKS, loop="system", config=config,
+                            device=DEVICE, seed=SEED, frames=N_FRAMES,
+                            timeout=900)
+    wall = time.perf_counter() - t0
+    # Plain lists, but the trajectories.
+    recs = [{k: (v.tolist() if isinstance(v, np.ndarray)
+                 and k not in ("est", "gt") else v) for k, v in rec.items()}
+            for rec in recs]
+    for r, rec in enumerate(recs):
+        est = np.asarray(rec["est"])
+        if (rec["rank"] != r or est.shape != (N_FRAMES, 4, 4)
+                or not np.isfinite(est).all()
+                or not np.array_equal(est, np.asarray(recs[0]["est"]))):
+            raise AssertionError(f"{phase}: rank {r}'s trajectory is not "
+                                 "rank 0's")
+        if not rec["ate_rmse_cm"] < ate_gate_cm:
+            raise AssertionError(f"{phase}: ATE {rec['ate_rmse_cm']} cm, "
+                                 f"gate {ate_gate_cm}")
+        want = gang_expected(rec)
+        got = {n: rec["launches"][n] - rec["schur_launches"].get(n, 0)
+               for n in want}
+        if got != want or rec["launches"]["plane_sample_fwd_smem"]:
+            raise AssertionError(f"{phase}: rank {r} launches "
+                                 f"{rec['launches']} (pose system "
+                                 f"{rec['schur_launches']}), loop {want}")
+        if rec["grad_allreduces"] != rec["map_iters"]:
+            raise AssertionError(
+                f"{phase}: rank {r} gradient all-reduces per mapped frame "
+                f"{rec['grad_allreduces']}, iterations {rec['map_iters']}")
+        grad = rec["collectives"]["grad"]
+        emit({"phase": phase, "rank": r, "backend": rec["backend"],
+              "device": rec["device"], "parallel": rec["parallel"],
+              "pose_solver": rec["pose_solver"], "frames": N_FRAMES,
+              "ate_rmse_cm": rec["ate_rmse_cm"], "wall_s": rec["wall_s"],
+              "track_ms": rec["track_ms"], "map_ms": rec["map_ms"],
+              "map_frames": rec["map_frames"], "map_iters": rec["map_iters"],
+              "track_ms_mean": float(np.mean(rec["track_ms"])),
+              "map_ms_frame0": rec["map_ms"][0],
+              "map_ms_steady_mean": float(np.mean(rec["map_ms"][1:])),
+              "launches": rec["launches"],
+              "schur_launches": rec["schur_launches"],
+              "grad_allreduces_per_mapped_frame": rec["grad_allreduces"],
+              "ba_moves_m": rec["ba_moves_m"],
+              "grad_allreduce_bytes": grad["bytes"] // grad["calls"],
+              "grad_allreduce_ms_mean": 1e3 * grad["seconds"]
+              / grad["calls"],
+              "collectives": rec["collectives"],
+              "peak_mem_gb": rec["peak_mem_gb"],
+              "ckpt_extra_mem_bytes": rec["ckpt_extra_mem_bytes"],
+              "store_mode": rec["store_mode"],
+              "store_capacity": rec["store_capacity"],
+              "store_local_capacity": rec["store_local_capacity"],
+              "store_imagery_bytes": rec["store_imagery_bytes"],
+              "gang_wall_s": wall})
+    return recs
+
+
+def gang_speed(recs: list, slam_rec: dict) -> dict:
+    """Rank 0's tracked- and mapped-frame ms beside phase slam's."""
+    import numpy as np
+
+    r0 = recs[0]
+    return {"track_ms_mean": float(np.mean(r0["track_ms"])),
+            "map_ms_frame0": r0["map_ms"][0],
+            "map_ms_steady_mean": float(np.mean(r0["map_ms"][1:])),
+            "slam_track_ms_mean": slam_rec["track_ms_mean"],
+            "slam_map_ms_frame0": slam_rec["map_ms_frame0"],
+            "slam_map_ms_steady_mean": slam_rec["map_ms_steady_mean"]}
+
+
+def run_dp(slam_rec: dict, slam_est) -> list:
+    """Phase dp: ray data parallelism (``parallel.devices``) on GANG_RANKS
+    ranks, within DP_GATE_M per frame of phase slam's single-rank
+    trajectory.  Returns the ranks' records."""
+    recs = run_gang("dp", gang_config("dp", {"devices": GANG_RANKS}))
+    vs_slam = translation_diff(recs[0]["est"], slam_est)
+    if not vs_slam.max() < DP_GATE_M:
+        raise AssertionError(f"dp: {vs_slam} m from phase slam's "
+                             f"trajectory; gate {DP_GATE_M} m")
+    emit({"phase": "dp_summary", "ranks": GANG_RANKS,
+          "backend": recs[0]["backend"],
+          "launches": [r["launches"] for r in recs],
+          "peak_mem_gb": [r["peak_mem_gb"] for r in recs],
+          **gang_speed(recs, slam_rec),
+          "max_translation_diff_vs_slam_m": float(vs_slam.max()),
+          "translation_diff_vs_slam_m": vs_slam.tolist(),
+          "gate_m": DP_GATE_M})
+    return recs
+
+
+def run_kf_schur(slam_rec: dict, name: str = "kf_schur",
+                 schedule: dict | None = None,
+                 ate_gate_cm: float = 2.0) -> dict:
+    """Phase kf_schur: keyframe-sharded BA (``parallel.kf_shards``) with
+    the reduced (Schur) pose solve on GANG_RANKS ranks, on room.yaml's
+    schedule (``schedule``: mapping keys that replace it; phase
+    kf_schur_every).  Each rank's keyframe imagery must be at most half
+    the single-rank store's (the same config on one rank, built here)
+    plus one slot, the pose system must have launched K2, and a
+    checkpoint, whose imagery is gathered to rank 0, must take no other
+    rank more device memory than a slot.  With ``schedule`` the solve
+    must move a stored keyframe by BA_MOVE_MIN_M in some frame."""
+    from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    config = gang_config(name, {"kf_shards": GANG_RANKS,
+                                "pose_solver": "schur"}, schedule)
+    single_cfg = load_config(config, DEFAULT_CONFIG)
+    single_cfg["parallel"] = {}
+    single = SLAMSystem(single_cfg, seed=SEED, device=DEVICE).store
+    single_bytes = single.imagery_bytes()
+    slot_bytes = single_bytes // single.capacity
+    del single
+    recs = run_gang(name, config, ate_gate_cm)
+    for r, rec in enumerate(recs):
+        if not rec["store_imagery_bytes"] <= single_bytes / 2 + slot_bytes:
+            raise AssertionError(
+                f"{name}: rank {r} holds {rec['store_imagery_bytes']} "
+                f"bytes of imagery; one rank's store {single_bytes}")
+        if not rec["schur_launches"]["plane_sample_bwd"] > 0:
+            raise AssertionError(f"{name}: rank {r} pose system "
+                                 f"{rec['schur_launches']}")
+        if r > 0 and not rec["ckpt_extra_mem_bytes"] <= slot_bytes:
+            raise AssertionError(
+                f"{name}: rank {r} took {rec['ckpt_extra_mem_bytes']} "
+                f"device bytes for a checkpoint; a slot is {slot_bytes}")
+    moved = max(recs[0]["ba_moves_m"])
+    if schedule is not None and not moved > BA_MOVE_MIN_M:
+        raise AssertionError(f"{name}: the solve moved no stored keyframe "
+                             f"({recs[0]['ba_moves_m']} m)")
+    out = {"phase": name + "_summary", "ranks": GANG_RANKS,
+           "schedule": schedule, "backend": recs[0]["backend"],
+           "launches": [r["launches"] for r in recs],
+           "schur_launches": [r["schur_launches"] for r in recs],
+           "store_imagery_bytes": [r["store_imagery_bytes"] for r in recs],
+           "single_rank_store_imagery_bytes": single_bytes,
+           "peak_mem_gb": [r["peak_mem_gb"] for r in recs],
+           "ckpt_extra_mem_bytes": [r["ckpt_extra_mem_bytes"]
+                                    for r in recs],
+           "max_ba_move_m": moved,
+           **gang_speed(recs, slam_rec),
+           "ate_rmse_cm": recs[0]["ate_rmse_cm"],
+           "ate_gate_cm": ate_gate_cm}
+    emit(out)
+    return out
+
+
+def check_schur_pullback(system) -> dict:
+    """K2 without the quad gradient at the reduced pose system's call: on
+    phase slam's final map and keyframes, keyframe-sharded BA's pose
+    system (exact color) over one rank's rays (mapping.pixels /
+    GANG_RANKS) from a window of every keyframe; the first pullback's
+    cotangent, points and quad against K2's plain version, within 1e-5
+    of the largest value, as phase kernels holds K2."""
+    import torch
+
+    from myslam_torch.core.geometry import rays_from_uv
+    from myslam_torch.core.quaternion import cam_pose_to_matrix, \
+        matrix_to_cam_pose
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.engine.mapper import map_quad_dtype
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.parallel.distributed_ba import make_local_ray_picker, \
+        make_pose_system
+    from myslam_torch.render.renderer import build_z_vals_core, make_queries
+
+    cfg, store, cam, scene = system.cfg, system.store, system.cam, \
+        system.scene
+    dev = system.device
+    n = store.count
+    slot_kf = torch.zeros((system.w_max,), dtype=torch.long, device=dev)
+    slot_kf[:n] = torch.arange(n, device=dev)
+    poses = matrix_to_cam_pose(store.est_c2w[slot_kf])
+    n_rays = int(cfg["mapping"]["pixels"]) // GANG_RANKS
+    draws = TorchDraws(SEED, dev)
+    p, i, j, depth, color, valid = make_local_ray_picker(
+        cam, n_rays, store.packed)(slot_kf, n, store.imagery(),
+                                   store.local_capacity, draws)
+    with torch.no_grad():
+        rays_o, rays_d = rays_from_uv(i, j, cam_pose_to_matrix(poses)[p],
+                                      cam.fx, cam.fy, cam.cx, cam.cy)
+        z_vals = build_z_vals_core(
+            draws, scene, rays_o, rays_d, depth, False,
+            make_queries(system.map_state, scene,
+                         quad_dtype=map_quad_dtype(cfg)))
+    calls = []
+    real = cuda_sample.plane_sample_bwd
+
+    def keep(gbar, quad, layout, p_nor, need_quad_grad=True):
+        calls.append((gbar.clone(), quad, layout, p_nor.clone(),
+                      need_quad_grad))
+        return real(gbar, quad, layout, p_nor, need_quad_grad)
+
+    cuda_sample.plane_sample_bwd = keep
+    try:
+        make_pose_system(cfg, scene, cam)(system.map_state, poses, p, i, j,
+                                          depth, color, z_vals, valid)
+    finally:
+        cuda_sample.plane_sample_bwd = real
+    gbar, quad, layout, p_nor, need_quad = calls[0]
+    if need_quad or any(c[4] for c in calls):
+        raise AssertionError("the pose system asked K2 for a quad gradient")
+    _, got = real(gbar, quad, layout, p_nor, need_quad_grad=False)
+    _, ref = cuda_sample.plane_sample_bwd_ref(gbar, quad, layout, p_nor,
+                                              need_quad_grad=False)
+    torch.cuda.synchronize()
+    err, rel = scaled_err(got, ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"K2 at the Schur pullback: error {rel:.3e} "
+                             "of the largest value exceeds 1e-5")
+    out = {"phase": "kernels", "case": "schur_pullback", "rays": n_rays,
+           "points": p_nor.shape[0], "layout_rows": layout.total_rows,
+           "quad_dtype": str(quad.dtype).replace("torch.", ""),
+           "k2_calls": len(calls),
+           "bwd_p_grad_only": {
+               "max_abs_err": err, "rel_err": rel,
+               "ms": time_ms(lambda: real(gbar, quad, layout, p_nor,
+                                          need_quad_grad=False)),
+               "plain_ms": time_ms(lambda: cuda_sample.plane_sample_bwd_ref(
+                   gbar, quad, layout, p_nor, need_quad_grad=False),
+                   reps=5)}}
+    emit(out)
+    return out
+
+
+def run_gang_resume(dp_recs: list, again: Background) -> dict:
+    """Phase gang_resume: ``run_torch.py --launch GANG_RANKS --supervise``
+    on phase dp's config, rank 1 killed at frame KILL_FRAME
+    (MYSLAM_FAULT_KILL): the launcher kills rank 0, the supervisor
+    restarts the gang once from rank 0's checkpoint of frame
+    KILL_FRAME - 1, both ranks start at KILL_FRAME, and the final
+    trajectory stays within GANG_RESUME_GATE_M per frame of phase dp's
+    run.  ``again`` runs phase dp_again meanwhile: phase dp's run once
+    more with the same seed, whose distance from phase dp is the gang's
+    run-to-run spread on the card."""
+    import numpy as np
+
+    config = gang_config("dp", {"devices": GANG_RANKS})
+    out_dir = os.path.abspath(os.path.join("output", "chip_smoke",
+                                           "gang_resume"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, MYSLAM_FAULT_KILL=GANG_KILL)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "run_torch.py", config, "--output", out_dir,
+             "--seed", str(SEED), "--device", DEVICE, "--launch",
+             str(GANG_RANKS), "--supervise"], env=env, capture_output=True,
+            text=True, timeout=900)
+    finally:
+        again_recs = again.join()
+    wall = time.perf_counter() - t0
+    spread = translation_diff(again_recs[0]["est"], dp_recs[0]["est"])
+    with open(out_dir + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    lines = proc.stdout.splitlines()
+    restarts = [ln for ln in lines if ln.startswith("SUPERVISOR: job")]
+    result = json.loads(lines[-1]) if lines and lines[-1].startswith(
+        "{") else {}
+    starts = [result.get("resumed_from")] + [
+        int(ln.rsplit(" ", 1)[1]) for ln in lines
+        if ln.startswith("RANK ") and ": resumed_from " in ln][-(
+            GANG_RANKS - 1):]
+    launches = [result.get("launches")] + [
+        json.loads(ln.split(": launches ", 1)[1]) for ln in lines
+        if ln.startswith("RANK ") and ": launches " in ln][-(
+            GANG_RANKS - 1):]
+    if (proc.returncode != 0 or len(restarts) != 1
+            or starts != [KILL_FRAME] * GANG_RANKS
+            or not all(la and la["plane_sample_fwd"]
+                       and la["plane_sample_bwd"] for la in launches)):
+        raise AssertionError(
+            f"gang_resume: rc {proc.returncode}, {restarts}, starts "
+            f"{starts}, launches {launches}; stderr {proc.stderr[-3000:]}")
+    with np.load(os.path.join(out_dir, "ckpts",
+                              f"{N_FRAMES - 1:05d}.npz"),
+                 allow_pickle=True) as ck:
+        est = ck["estimate_c2w_list"]
+    if not spread.max() < DP_GATE_M:
+        raise AssertionError(f"dp_again: {spread} m from phase dp's run; "
+                             f"gate {DP_GATE_M} m")
+    gap = translation_diff(est, np.asarray(dp_recs[0]["est"]))
+    if not gap.max() < GANG_RESUME_GATE_M:
+        raise AssertionError(f"gang_resume: {gap} m from phase dp's run; "
+                             f"gate {GANG_RESUME_GATE_M} m")
+    out = {"phase": "gang_resume", "ranks": GANG_RANKS, "kill": GANG_KILL,
+           "wall_s": wall, "restarts": restarts, "starts": starts,
+           "result": result, "launches": launches,
+           "max_translation_diff_m": float(gap.max()),
+           "translation_diff_m": gap.tolist(),
+           "max_translation_diff_dp_again_m": float(spread.max()),
+           "translation_diff_dp_again_m": spread.tolist(),
+           "gate_m": GANG_RESUME_GATE_M, "dp_again_gate_m": DP_GATE_M}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1880,7 +2327,24 @@ def main(argv=None) -> int:
     emit(slam)
     mesh = run_mesh(system)
     run_replay(system.output)
+    schur_case = check_schur_pullback(system)
+    slam_est = system.estimates.copy()
     del system
+    dp_recs = run_dp(slam, slam_est)
+    # Phases kf_schur, kf_schur_every and dp_again run beside
+    # gang_resume: none of their times is a recorded number (phase dp's
+    # are, alone).
+    kf = Background(run_kf_schur, slam)
+    kf_every = Background(run_kf_schur, slam, "kf_schur_every",
+                          KF_SCHUR_EVERY, KF_SCHUR_EVERY_ATE_CM)
+    try:
+        resume = run_gang_resume(dp_recs, Background(
+            run_gang, "dp_again",
+            gang_config("dp_again", {"devices": GANG_RANKS})))
+    finally:
+        kf.wait()
+        kf_every.wait()
+    kf, kf_every = kf.join(), kf_every.join()
     bench = run_bench_scatter()
     run_bench_exact()
     tum = tum_config(None)
@@ -1986,6 +2450,25 @@ def main(argv=None) -> int:
             "launches_tum_layout": tum_layout["launches"][k["name"]]})
     kernels[0]["launches_mesh_host_staged"] = \
         host["finalize"]["launches"]["plane_sample_fwd"]
+    # K1 and K2 launches per rank in the gang phases, and K2 at the
+    # reduced pose system's call (coordinate gradient alone).
+    for k in kernels[:2]:
+        k.update({
+            "launches_dp": [r["launches"][k["name"]] for r in dp_recs],
+            "launches_kf_schur": [la[k["name"]] for la in kf["launches"]],
+            "launches_kf_schur_pose_system": [
+                la[k["name"]] for la in kf["schur_launches"]],
+            "launches_kf_schur_every": [la[k["name"]]
+                                        for la in kf_every["launches"]],
+            "launches_kf_schur_every_pose_system": [
+                la[k["name"]] for la in kf_every["schur_launches"]],
+            "launches_gang_resume": [la[k["name"]]
+                                     for la in resume["launches"]]})
+    schur_k2 = schur_case["bwd_p_grad_only"]
+    kernels[1].update({
+        "max_abs_err": max(kernels[1]["max_abs_err"], schur_k2["max_abs_err"]),
+        "ms_schur_p_grad_only": schur_k2["ms"],
+        "plain_ms_schur_p_grad_only": schur_k2["plain_ms"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

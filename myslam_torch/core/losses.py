@@ -25,6 +25,17 @@ def sdf_losses(sdf, z_vals, gt_depth, ray_mask, truncation: float,
     center (|z - d| < 0.4 trunc) and the remaining tail band pull
     z + sdf*trunc to d.
     """
+    (fs, front), (sq_c, center), (sq_t, tail) = sdf_terms(
+        sdf, z_vals, gt_depth, ray_mask, truncation)
+    fs_loss = masked_mean(fs, front)
+    center_loss = masked_mean(sq_c, center)
+    tail_loss = masked_mean(sq_t, tail)
+    return w_fs * fs_loss + w_center * center_loss + w_tail * tail_loss
+
+
+def sdf_terms(sdf, z_vals, gt_depth, ray_mask, truncation: float) -> list:
+    """sdf_losses' three terms as (values, mask) pairs: free space,
+    center, tail."""
     d = gt_depth[:, None]
     rm = ray_mask[:, None]
     front = (z_vals < d - truncation) & rm
@@ -32,11 +43,42 @@ def sdf_losses(sdf, z_vals, gt_depth, ray_mask, truncation: float,
     center = ((z_vals > d - 0.4 * truncation)
               & (z_vals < d + 0.4 * truncation) & rm)
     tail = (~front) & (~back) & (~center) & rm
-    fs_loss = masked_mean(torch.square(sdf - 1.0), front)
     est = z_vals + sdf * truncation
-    center_loss = masked_mean(torch.square(est - d), center)
-    tail_loss = masked_mean(torch.square(est - d), tail)
-    return w_fs * fs_loss + w_center * center_loss + w_tail * tail_loss
+    return [(torch.square(sdf - 1.0), front),
+            (torch.square(est - d), center), (torch.square(est - d), tail)]
+
+
+def slam_terms(sdf, z_vals, gt_depth, sdf_mask, truncation: float,
+               gt_color, color, color_mask, depth, depth_mask) -> list:
+    """The five (values, mask) pairs of the SLAM loss, in the order of
+    its weights (free space, center, tail, color, depth)."""
+    sq = torch.square(gt_color - color)
+    return sdf_terms(sdf, z_vals, gt_depth, sdf_mask, truncation) + [
+        (sq, color_mask[:, None].expand(sq.shape)),
+        (torch.square(gt_depth - depth), depth_mask)]
+
+
+def global_weighted_loss(terms: list, weights, all_reduce_) -> torch.Tensor:
+    """Σ_k w_k · (masked mean of term k over every rank's rays).
+
+    Each rank sums its own (values, mask) pairs; their sums and counts
+    cross the ranks in one ``all_reduce_`` (summing a 1-D tensor in
+    place), so every rank sees the same global means, and the
+    gradient of the result with respect to this rank's values is that of
+    the global loss: summing the ranks' gradients gives the exact global
+    gradient.  The weighted sum runs in sdf_losses' order, then color,
+    then depth."""
+    masks = [m.to(x.dtype) for x, m in terms]
+    s = torch.stack([(x * m).sum() for (x, _), m in zip(terms, masks)])
+    c = torch.stack([m.sum() for m in masks])
+    k = len(terms)
+    tot = all_reduce_(torch.cat([s.detach(), c]))
+    means = (tot[:k] + (s - s.detach())) / torch.clamp(tot[k:], min=1.0)
+    loss = (weights[0] * means[0] + weights[1] * means[1]
+            + weights[2] * means[2])
+    for w, mean in zip(weights[3:], means[3:]):
+        loss = loss + w * mean
+    return loss
 
 
 def color_loss(gt_color, color, ray_mask):

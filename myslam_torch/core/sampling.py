@@ -6,7 +6,9 @@ with ``uniform(shape)`` and ``randint(shape, low, high)``:
   * ``TorchDraws`` wraps one ``torch.Generator`` on the device, seeded
     once per run (the default);
   * ``ReplayDraws`` hands out a fixed list of draws in call order, so a
-    test can feed the port exactly the numbers the JAX package drew.
+    test can feed the port exactly the numbers the JAX package drew;
+  * ``RowShardDraws`` gives one rank its rows of a batch's draws, and
+    ``RecordedDraws`` keeps draws to hand them out again.
 
 The call order of every sampler is part of its contract (documented per
 function), because a replay source is consumed in that order.
@@ -48,7 +50,8 @@ class ReplayDraws:
     """
 
     def __init__(self, draws):
-        self._queue = deque(np.asarray(d) for d in draws)
+        self._queue = deque(d if isinstance(d, torch.Tensor)
+                            else np.asarray(d) for d in draws)
 
     def __len__(self) -> int:
         return len(self._queue)
@@ -65,13 +68,75 @@ class ReplayDraws:
 
     def uniform(self, shape) -> torch.Tensor:
         a = self._next(shape)
+        if isinstance(a, torch.Tensor):
+            return a
         return torch.as_tensor(a.astype(np.float32))
 
     def randint(self, shape, low: int, high: int) -> torch.Tensor:
         a = self._next(shape)
+        if isinstance(a, torch.Tensor):
+            return a
         if a.size and (a.min() < low or a.max() >= high):
             raise ValueError(f"replayed randint outside [{low}, {high})")
         return torch.as_tensor(a.astype(np.int64))
+
+
+class RowShardDraws:
+    """One rank's rows of another source's draws.
+
+    A sampler asking for ``(rows, ...)`` with ``rows`` this rank's share
+    of an ``n_global``-row batch (``ceil(n_global / world)``) gets rows
+    ``[rank * rows, (rank + 1) * rows)`` of the base source's draw of
+    ``(n_global, ...)``, zero-padded past ``n_global``: every rank
+    consumes the base source exactly as the unsharded batch would, so the
+    ranks together see the single-device draws."""
+
+    def __init__(self, base, n_global: int, rank: int, world: int):
+        self.base = base
+        self.n_global = int(n_global)
+        self.rows = -(-self.n_global // world)
+        self.rank = int(rank)
+
+    def _slice(self, full: torch.Tensor) -> torch.Tensor:
+        pad = self.rows * (self.rank + 1) - full.shape[0]
+        if pad > 0:
+            full = torch.cat([full, full.new_zeros(
+                (min(pad, self.rows),) + tuple(full.shape[1:]))])
+        return full[self.rank * self.rows:(self.rank + 1) * self.rows]
+
+    def _global(self, shape) -> tuple:
+        shape = tuple(shape)
+        if not shape or shape[0] != self.rows:
+            raise ValueError(f"sharded draw of shape {shape}; rows per "
+                             f"rank are {self.rows}")
+        return (self.n_global,) + shape[1:]
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._slice(self.base.uniform(self._global(shape)))
+
+    def randint(self, shape, low: int, high: int) -> torch.Tensor:
+        return self._slice(self.base.randint(self._global(shape), low, high))
+
+
+class RecordedDraws:
+    """Passes another source's draws through and keeps them;
+    ``replay()`` hands the same tensors out again in the same order (a
+    computation that must see the draws of an earlier one)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.kept: list = []
+
+    def uniform(self, shape) -> torch.Tensor:
+        self.kept.append(self.base.uniform(shape))
+        return self.kept[-1]
+
+    def randint(self, shape, low: int, high: int) -> torch.Tensor:
+        self.kept.append(self.base.randint(shape, low, high))
+        return self.kept[-1]
+
+    def replay(self) -> "ReplayDraws":
+        return ReplayDraws(self.kept)
 
 
 def unit_linspace(n: int, device) -> torch.Tensor:

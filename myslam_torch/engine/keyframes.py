@@ -16,6 +16,12 @@ by the config's ``keyframe_device`` (``store_mode``):
     device line cache that holds the BA window (``stage_lines``).
 
 Poses always stay on the device.
+
+A store sharded over the ranks of a process group (``shard=(rank, n)``,
+keyframe-sharded BA, ``parallel/distributed_ba.py``) holds on each rank
+only the imagery of its own contiguous block of ``capacity / n`` slots;
+the poses and the bookkeeping stay whole on every rank, and
+``full_view()`` gathers the imagery to rank 0 for a checkpoint or a mesh.
 """
 
 from __future__ import annotations
@@ -62,10 +68,24 @@ class KeyframeStore:
     """
 
     def __init__(self, capacity: int, cam: Camera, device,
-                 color_dtype=torch.float16, mode: str = "device"):
+                 color_dtype=torch.float16, mode: str = "device",
+                 shard: tuple[int, int] | None = None):
         if mode not in ("device", "packed", "host_staged"):
             raise ValueError(f"unknown keyframe store mode {mode!r}")
         self.capacity = int(capacity)
+        # Sharded: this rank's imagery rows are global slots
+        # [slot_offset, slot_offset + local_capacity).
+        self.shard = shard
+        self.local_capacity = self.capacity
+        self.slot_offset = 0
+        if shard is not None:
+            rank, n = shard
+            if mode == "host_staged" or self.capacity % n:
+                raise ValueError(
+                    f"a store sharded {n} ways needs a device or packed "
+                    f"store whose capacity ({capacity}) divides by {n}")
+            self.local_capacity = self.capacity // n
+            self.slot_offset = rank * self.local_capacity
         self.cam = cam
         self.device = torch.device(device)
         self.mode = mode
@@ -77,7 +97,8 @@ class KeyframeStore:
         self.has_depthless: list[bool] = [False] * self.capacity
         # Frame index of each admitted keyframe, by slot.
         self.frame_ids: list[int] = []
-        img, px = (capacity, cam.H, cam.W, 3), (capacity, cam.H, cam.W)
+        rows = self.local_capacity
+        img, px = (rows, cam.H, cam.W, 3), (rows, cam.H, cam.W)
         if self.host_mode:
             pin = self.device.type == "cuda"
             self.colors_u8 = torch.zeros(img, dtype=torch.uint8,
@@ -90,7 +111,7 @@ class KeyframeStore:
                                       device=device)
             self.depths_u16 = torch.zeros(px, dtype=torch.uint16,
                                           device=device)
-            self.depth_inv_q = torch.ones((capacity,), dtype=torch.float32,
+            self.depth_inv_q = torch.ones((rows,), dtype=torch.float32,
                                           device=device)
         else:
             self.colors = torch.zeros(img, dtype=color_dtype, device=device)
@@ -99,6 +120,66 @@ class KeyframeStore:
         eye = torch.eye(4, device=device)
         self.est_c2w = eye.repeat(capacity, 1, 1)
         self.gt_c2w = eye.repeat(capacity, 1, 1)
+
+    def local_slot(self, slot: int) -> int | None:
+        """The row of global ``slot`` in this rank's imagery, or None
+        when another rank holds it."""
+        row = int(slot) - self.slot_offset
+        return row if 0 <= row < self.local_capacity else None
+
+    def write_packet(self, slot: int, color_u8, depth_u16,
+                     inv_q: float) -> None:
+        """A frame packet's imagery (uint8 color, uint16 depth and its
+        scale) into global ``slot``, on the rank that holds it: as it
+        comes for the packed store, dequantized for the float store."""
+        row = self.local_slot(slot)
+        if row is None:
+            return
+        if self.packed:
+            self.colors[row] = color_u8
+            self.depths_u16[row] = depth_u16
+            self.depth_inv_q[row] = inv_q
+        else:
+            self.colors[row] = (color_u8.to(torch.float32)
+                                * (1.0 / 255.0)).to(self.colors.dtype)
+            self.depths[row] = depth_u16.to(torch.float32) * inv_q
+
+    def imagery(self) -> tuple:
+        """This rank's imagery buffers: (colors, depths, None) for the
+        float store, (colors, depths_u16, depth_inv_q) for the packed."""
+        if self.packed:
+            return self.colors, self.depths_u16, self.depth_inv_q
+        return self.colors, self.depths, None
+
+    def full_view(self) -> "KeyframeStore | None":
+        """The store with every slot's imagery, on rank 0: itself when
+        unsharded; for a sharded store an unsharded copy on rank 0, its
+        imagery gathered from the ranks in one collective per buffer, and
+        None on the other ranks, which allocate no copy (every rank must
+        call this at the same point)."""
+        if self.shard is None:
+            return self
+        from myslam_torch.parallel import distributed
+
+        parts = [distributed.gather_to_rank0(src, "store")
+                 if src is not None else None for src in self.imagery()]
+        if distributed.rank() != 0:
+            return None
+        full = KeyframeStore(self.capacity, self.cam, self.device,
+                             mode=self.mode,
+                             color_dtype=(self.colors.dtype if not
+                                          self.packed else torch.float16))
+        rows = self.local_capacity
+        with torch.no_grad():
+            for dst, gathered in zip(full.imagery(), parts):
+                for r, part in enumerate(gathered or ()):
+                    dst[r * rows:(r + 1) * rows].copy_(part)
+            full.est_c2w.copy_(self.est_c2w)
+            full.gt_c2w.copy_(self.gt_c2w)
+        full.count = self.count
+        full.has_depthless = list(self.has_depthless)
+        full.frame_ids = list(self.frame_ids)
+        return full
 
     def imagery_bytes(self) -> int:
         """Bytes of the store's imagery on the device (color and depth

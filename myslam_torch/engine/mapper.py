@@ -16,6 +16,17 @@ A fresh Adam per mapped frame, with the reference's per-group learning
 rates (decoders, planes, c_planes, poses); beta is frozen when
 ``rendering.learnable_beta`` is off; ``lr_factor`` scales the map
 groups only.
+
+``sharded``: ray data parallelism over the ranks of the process group
+(``parallel/distributed.py``), as the JAX package's ``dp_mesh``: every
+rank draws the whole padded ray batch (``ceil(pixels / R) * R`` rays,
+the same draws on every rank) and keeps its contiguous slice, the padded
+tail masked out; the renderer's draws are the local batch's, the same on
+every rank, as each JAX shard's are; the masked means are global (one
+all-reduce of their sums and counts) and the gradients of the atlases,
+decoders and window poses are summed as one flat buffer in one
+all-reduce per iteration, before Adam.  One rank is exactly the
+unsharded path.
 """
 
 from __future__ import annotations
@@ -23,7 +34,8 @@ from __future__ import annotations
 import torch
 
 from myslam_torch.core.geometry import ray_aabb_exit_t, rays_from_uv
-from myslam_torch.core.losses import color_loss, depth_loss, sdf_losses
+from myslam_torch.core.losses import color_loss, depth_loss, \
+    global_weighted_loss, sdf_losses, slam_terms
 from myslam_torch.core.quaternion import cam_pose_to_matrix, \
     matrix_to_cam_pose
 from myslam_torch.engine.camera import Camera
@@ -31,6 +43,7 @@ from myslam_torch.engine.keyframes import KeyframeStore
 from myslam_torch.models.planes import MapState
 from myslam_torch.ops.pixel_gather import gather_rgb, gather_scalar, \
     gather_u16
+from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import SceneGeometry, make_queries, \
     render_core
 
@@ -43,8 +56,9 @@ def map_quad_dtype(cfg: dict):
 
 
 def _build_stages(cfg: dict, scene: SceneGeometry, cam: Camera,
-                  packed: bool = False):
-    """The mapping loss's first and last stages, around render_core.
+                  packed: bool = False, sharded: bool = False):
+    """The mapping loss's first and last stages, around render_core
+    (``sharded``: this rank's slice of the rays, global means).
 
     Returns (geometry, losses):
       geometry(poses, pose_mask, slot_kf, n_slots, kf_colors, kf_depths,
@@ -62,17 +76,28 @@ def _build_stages(cfg: dict, scene: SceneGeometry, cam: Camera,
                               float(m["w_sdf_center"]),
                               float(m["w_sdf_tail"]))
     HW = cam.H * cam.W
+    weights = (w_fs, w_center, w_tail, w_color, w_depth)
 
     def geometry(poses, pose_mask, slot_kf, n_slots, kf_colors, kf_depths,
                  kf_inv_q, draws):
-        """Draws, in order: pixel columns, pixel rows (``randint``)."""
+        """Draws, in order: pixel columns, pixel rows (``randint``), of
+        the whole (padded) batch."""
         dev = poses.device
         poses = torch.where(pose_mask[:, None] > 0, poses, poses.detach())
         c2ws = cam_pose_to_matrix(poses)
-        slot_of_ray = torch.arange(n_rays, device=dev) % n_slots
+        rows = -(-n_rays // distributed.world()) if sharded else n_rays
+        n_draw = rows * (distributed.world() if sharded else 1)
+        slot_of_ray = torch.arange(n_draw, device=dev) % n_slots
+        i = draws.randint((n_draw,), 0, cam.W).to(torch.float32)
+        j = draws.randint((n_draw,), 0, cam.H).to(torch.float32)
+        pad_ok = None
+        if sharded:
+            s0 = distributed.rank() * rows
+            i, j = i[s0:s0 + rows], j[s0:s0 + rows]
+            slot_of_ray = slot_of_ray[s0:s0 + rows]
+            if n_draw != n_rays:
+                pad_ok = (s0 + torch.arange(rows, device=dev)) < n_rays
         kf_of_ray = slot_kf[slot_of_ray]
-        i = draws.randint((n_rays,), 0, cam.W).to(torch.float32)
-        j = draws.randint((n_rays,), 0, cam.H).to(torch.float32)
         flat = kf_of_ray * HW + j.long() * cam.W + i.long()
         if packed:
             px_depth = (gather_u16(kf_depths, flat).to(torch.float32)
@@ -87,10 +112,17 @@ def _build_stages(cfg: dict, scene: SceneGeometry, cam: Camera,
         t_exit = ray_aabb_exit_t(rays_o.detach(), rays_d.detach(),
                                  scene.bound_tensor(dev))
         inside = t_exit >= px_depth  # depth-0 rays pass, as the reference
+        if pad_ok is not None:
+            inside = inside & pad_ok  # padded tail rays contribute zero
         return rays_o, rays_d, px_depth, px_color, inside
 
     def losses(sdf, z_vals, depth, color, px_depth, px_color, inside):
         dmask = inside & (px_depth > 0)
+        if sharded:
+            return global_weighted_loss(
+                slam_terms(sdf, z_vals, px_depth, dmask, scene.truncation,
+                           px_color, color, inside, depth, dmask), weights,
+                lambda t: distributed.all_reduce_(t, "loss"))
         loss = sdf_losses(sdf, z_vals, px_depth, dmask, scene.truncation,
                           w_fs, w_center, w_tail)
         loss = loss + w_color * color_loss(px_color, color, inside)
@@ -100,32 +132,41 @@ def _build_stages(cfg: dict, scene: SceneGeometry, cam: Camera,
     return geometry, losses
 
 
+def make_map_optimizer(cfg: dict, ms: MapState, poses, lr_factor: float):
+    """Adam over the reference's groups: decoders (beta too when
+    ``rendering.learnable_beta``), planes, c_planes at their rates times
+    ``lr_factor``, and the poses at ``joint_opt_cam_lr`` (``poses`` None:
+    no pose group)."""
+    m = cfg["mapping"]
+    lr = m["lr"]
+    dec = ms.decoder
+    dec_params = dec.mlp_params() + (
+        [dec.beta] if bool(cfg["rendering"].get("learnable_beta", True))
+        else [])
+    groups = [
+        {"params": dec_params, "lr": float(lr["decoders_lr"]) * lr_factor},
+        {"params": [ms.sdf_atlas], "lr": float(lr["planes_lr"]) * lr_factor},
+        {"params": [ms.color_atlas],
+         "lr": float(lr["c_planes_lr"]) * lr_factor}]
+    if poses is not None:
+        groups.append({"params": [poses],
+                       "lr": float(m["joint_opt_cam_lr"])})
+    return torch.optim.Adam(groups)
+
+
 def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
-                importance: bool = True, packed: bool = False):
+                importance: bool = True, packed: bool = False,
+                sharded: bool = False):
     """The per-iteration mapping loss and the optimizer factory.
 
     The loss runs _build_stages' geometry, render_core over the map's
     quads (packed here each iteration, at ``map_quad_dtype``), then
-    _build_stages' losses; ``packed`` as there."""
-    m = cfg["mapping"]
-    lr = m["lr"]
-    learnable_beta = bool(cfg["rendering"].get("learnable_beta", True))
+    _build_stages' losses; ``packed`` and ``sharded`` as there."""
     quad_dtype = map_quad_dtype(cfg)
-    geometry, losses = _build_stages(cfg, scene, cam, packed)
+    geometry, losses = _build_stages(cfg, scene, cam, packed, sharded)
 
     def make_optimizer(ms: MapState, poses: torch.Tensor, lr_factor: float):
-        dec = ms.decoder
-        dec_params = dec.mlp_params() + ([dec.beta] if learnable_beta
-                                         else [])
-        return torch.optim.Adam([
-            {"params": dec_params,
-             "lr": float(lr["decoders_lr"]) * lr_factor},
-            {"params": [ms.sdf_atlas],
-             "lr": float(lr["planes_lr"]) * lr_factor},
-            {"params": [ms.color_atlas],
-             "lr": float(lr["c_planes_lr"]) * lr_factor},
-            {"params": [poses], "lr": float(m["joint_opt_cam_lr"])},
-        ])
+        return make_map_optimizer(cfg, ms, poses, lr_factor)
 
     def loss_fn(ms: MapState, poses, pose_mask, slot_kf, n_slots,
                 kf_colors, kf_depths, kf_inv_q, draws):
@@ -142,22 +183,20 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
     return loss_fn, make_optimizer
 
 
-def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
-                     c2ws, pose_mask, slot_kf, lines, n_slots, imagery,
-                     idx: int, draws, iters: int, lr_factor: float,
-                     joint_opt: bool, vis_hook=None, vis_every: int = 1):
-    """The iterations over one window, then the masked pose write-back.
+def optimizer_params(opt: torch.optim.Optimizer) -> list:
+    """The optimizer's parameters, group by group: the order of the flat
+    gradient buffer that crosses the ranks."""
+    return [p for g in opt.param_groups for p in g["params"]]
 
-    ``c2ws`` (w_max, 4, 4) are the window's starting poses, ``slot_kf``
-    its global store slots (where the poses go back), ``lines`` the
-    imagery rows the rays read (``imagery``: colors, depths, inv_q).
-    ``vis_hook(m, ms, c2w)``, when given, is called before iteration m's
-    step for every multiple m of ``vis_every`` with 0 < m < iters, with
-    the map after m iterations and the current frame's pose (slot
-    n_slots - 1); without it the loop reads nothing back.
-    Returns the losses (iters,) on the device."""
-    poses = matrix_to_cam_pose(c2ws).requires_grad_()
+
+def _iterate(loss_fn, make_optimizer, ms: MapState, poses, pose_mask,
+             lines, n_slots, imagery, draws, iters: int, lr_factor: float,
+             sharded: bool, vis_hook=None, vis_every: int = 1):
+    """``iters`` Adam steps of the map and the window poses (updated in
+    place); under ``sharded`` the gradients cross the ranks in one
+    all-reduce per step.  Returns the losses (iters,) on the device."""
     opt = make_optimizer(ms, poses, lr_factor)
+    params = optimizer_params(opt)
     losses = []
     for it in range(iters):
         if vis_hook is not None and it > 0 and it % vis_every == 0:
@@ -169,8 +208,33 @@ def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
         loss = loss_fn(ms, poses, pose_mask, lines, n_slots, *imagery,
                        draws)
         loss.backward()
+        if sharded:
+            distributed.all_reduce_grads(params)
         opt.step()
         losses.append(loss.detach())
+    return torch.stack(losses) if losses else torch.zeros(
+        (0,), device=poses.device)
+
+
+def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
+                     c2ws, pose_mask, slot_kf, lines, n_slots, imagery,
+                     idx: int, draws, iters: int, lr_factor: float,
+                     joint_opt: bool, vis_hook=None, vis_every: int = 1,
+                     sharded: bool = False):
+    """The iterations over one window, then the masked pose write-back.
+
+    ``c2ws`` (w_max, 4, 4) are the window's starting poses, ``slot_kf``
+    its global store slots (where the poses go back), ``lines`` the
+    imagery rows the rays read (``imagery``: colors, depths, inv_q).
+    ``vis_hook(m, ms, c2w)``, when given, is called before iteration m's
+    step for every multiple m of ``vis_every`` with 0 < m < iters, with
+    the map after m iterations and the current frame's pose (slot
+    n_slots - 1); without it the loop reads nothing back.
+    Returns the losses (iters,) on the device."""
+    poses = matrix_to_cam_pose(c2ws).requires_grad_()
+    losses = _iterate(loss_fn, make_optimizer, ms, poses, pose_mask, lines,
+                      n_slots, imagery, draws, iters, lr_factor, sharded,
+                      vis_hook, vis_every)
     with torch.no_grad():
         # Keyframe poses of the optimized window slots; the trajectory
         # only for the current frame, under joint_opt.
@@ -180,16 +244,43 @@ def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
             pose_mask[:, None, None] > 0, c2ws_out, old)
         if joint_opt:
             est[idx] = c2ws_out[n_slots - 1]
-    return torch.stack(losses) if losses else torch.zeros(
-        (0,), device=est.device)
+    return losses
+
+
+def make_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
+                importance: bool = True, sharded: bool = False):
+    """The bare BA step over a window the caller describes (the port of
+    ``myslam_tpu.engine.mapper.make_mapper``), on a float store's
+    imagery; ``sharded``: ray data parallelism.
+
+    Returns map_step(ms, poses (W, 7), pose_mask (W,), slot_kf (W,),
+    n_slots, kf_colors, kf_depths, draws, *, iters, lr_factor) ->
+    (poses (W, 7), losses (iters,)); ``ms`` is updated in place, the
+    caller's ``poses`` are not.  Draws: each iteration's (``loss_fn``).
+    """
+    loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
+                                          sharded=sharded)
+
+    def map_step(ms: MapState, poses, pose_mask, slot_kf, n_slots,
+                 kf_colors, kf_depths, draws, *, iters: int,
+                 lr_factor: float):
+        poses = poses.detach().clone().requires_grad_()
+        losses = _iterate(loss_fn, make_optimizer, ms, poses, pose_mask,
+                          slot_kf, n_slots, (kf_colors, kf_depths, None),
+                          draws, iters, lr_factor, sharded)
+        return poses.detach(), losses
+
+    return map_step
 
 
 def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                       selector, w_max: int, scratch_slot: int,
-                      importance: bool = True, packed: bool = False):
+                      importance: bool = True, packed: bool = False,
+                      sharded: bool = False):
     """One mapped frame: scratch-imagery write, window selection, the
     iterations, masked pose write-back and keyframe admission, over a
-    device store or (``packed``) a packed one.
+    device store or (``packed``) a packed one; ``sharded``: ray data
+    parallelism over the ranks (the store replicated on each).
 
     Returns map_frame(ms, store, est (n, 4, 4), color_u8 (H, W, 3),
     depth_u16 (H, W), inv_q, gt_c2w (4, 4), idx, draws, *, iters,
@@ -200,7 +291,7 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
     selector's, then each iteration's (``loss_fn``).
     """
     loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
-                                          packed)
+                                          packed, sharded)
 
     def map_frame(ms: MapState, store: KeyframeStore, est, color_u8,
                   depth_u16, inv_q: float, gt_c2w, idx: int, draws, *,
@@ -208,22 +299,13 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                   admit: bool, vis_hook=None, vis_every: int = 1):
         count = store.count
         with torch.no_grad():
+            store.write_packet(scratch_slot, color_u8, depth_u16, inv_q)
+            imagery = store.imagery()
             if packed:
-                store.colors[scratch_slot] = color_u8
-                store.depths_u16[scratch_slot] = depth_u16
-                store.depth_inv_q[scratch_slot] = inv_q
                 cur_depth = (store.depths_u16[scratch_slot].to(
                     torch.float32) * store.depth_inv_q[scratch_slot])
-                imagery = (store.colors, store.depths_u16,
-                           store.depth_inv_q)
             else:
-                store.colors[scratch_slot] = (
-                    color_u8.to(torch.float32) * (1.0 / 255.0)).to(
-                        store.colors.dtype)
-                store.depths[scratch_slot] = (
-                    depth_u16.to(torch.float32) * inv_q)
                 cur_depth = store.depths[scratch_slot]
-                imagery = (store.colors, store.depths, None)
             cur_c2w = est[idx]
             slot_kf, n_slots, pose_mask = selector(
                 store.est_c2w, count, cur_c2w, cur_depth, draws, joint_opt)
@@ -233,7 +315,7 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
         losses = _optimize_window(
             loss_fn, make_optimizer, ms, store, est, c2ws, pose_mask,
             slot_kf, slot_kf, n_slots, imagery, idx, draws, iters,
-            lr_factor, joint_opt, vis_hook, vis_every)
+            lr_factor, joint_opt, vis_hook, vis_every, sharded)
         with torch.no_grad():
             # Admission: the scratch slot's imagery and poses go to slot
             # ``count``; without admission the poses stay in the scratch.

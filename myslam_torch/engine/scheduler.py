@@ -20,7 +20,19 @@ the periodic checkpoints and meshes (``mapping.ckpt_freq`` /
 --supervise`` watches and the fault hook, and ``resume``; and the
 in-loop panels (``tracking/mapping.vis_freq``, ``vis_inside_freq``,
 ``utils/visualizer.py``).  On a CUDA device the prefetch thread stages
-each packet's uploads (``datasets.stage_packet``).  No parallel modes.
+each packet's uploads (``datasets.stage_packet``).
+
+The config's ``parallel`` section is read by the JAX package's rules
+(``parallel_mode``): one rank is one process and one device, and every
+rank of the process group (``parallel/distributed.py``) runs this same
+loop.  ``parallel.devices`` is ray data parallelism (the mapper's ray
+batch split over the ranks, one gradient all-reduce per iteration),
+``parallel.kf_shards`` keyframe-sharded BA (each rank holds its own
+keyframe slots' imagery; ``pose_solver`` adam or schur); under either,
+tracking splits its pixel batch over the ranks.  Rank 0 alone writes
+metrics.jsonl, the checkpoints, the meshes and the heartbeat; the
+panels are off; resume is decided by rank 0 and broadcast.  Everything
+else of the JAX package's ``parallel`` section raises.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from myslam_torch.engine.tracker import make_group_tracker
 from myslam_torch.models.config import get_model
 from myslam_torch.models.planes import compute_bound, init_map_state
 from myslam_torch.ops import cuda_sample
+from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import scene_from_cfg
 from myslam_torch.tools.cull_mesh import cull_mesh
 from myslam_torch.tools.eval_ate import evaluate_run
@@ -59,6 +72,53 @@ from myslam_torch.utils.visualizer import FrameVisualizer
 # The panels' draw source is seeded with the run's seed plus this, so
 # that rendering a panel takes no number from the loop's draws.
 VIS_SEED_OFFSET = 7919
+# A panel frequency no frame reaches (panels off).
+NEVER = 10 ** 9
+
+
+def parallel_mode(cfg: dict, world: int) -> str | None:
+    """The parallel mode of ``cfg["parallel"]`` in a process group of
+    ``world`` ranks: None, "dp" for ray data parallelism (``devices``)
+    or "kf" for keyframe-sharded BA (``kf_shards``); 0 means every
+    rank.  Raises ValueError, naming the mode, for what the port does
+    not run (``pipeline``, ``map_shards``, kf_shards x devices,
+    ``dp_impl: spmd``) and for a mode whose rank count is not the
+    process group's: one rank is one process and one device, so
+    ``devices: 2`` needs a group of 2."""
+    par = cfg.get("parallel", {}) or {}
+
+    def n(name):
+        v = int(par.get(name, 1))
+        return world if v == 0 else v
+
+    n_dev, map_shards, kf_shards = n("devices"), n("map_shards"), \
+        n("kf_shards")
+    if bool(par.get("pipeline", False)):
+        raise ValueError("parallel.pipeline (the track||map pipeline) is "
+                         "not ported to myslam_torch")
+    if map_shards > 1:
+        raise ValueError("parallel.map_shards (banded map shards) is not "
+                         "ported to myslam_torch")
+    if n_dev > 1 and kf_shards > 1:
+        raise ValueError("parallel.kf_shards x parallel.devices (composed "
+                         "kf x dp) is not ported to myslam_torch")
+    dp_impl = str(par.get("dp_impl", "shardmap")).lower()
+    if dp_impl != "shardmap":
+        raise ValueError(f"parallel.dp_impl: {dp_impl} is not ported to "
+                         "myslam_torch (its ray DP is the shardmap one: one "
+                         "gradient all-reduce per iteration)")
+    mode, ranks = ((("dp", n_dev) if n_dev > 1 else ("kf", kf_shards))
+                   if max(n_dev, kf_shards) > 1 else (None, 1))
+    if ranks != world:
+        what = ("parallel.devices" if mode == "dp" else
+                "parallel.kf_shards" if mode == "kf" else
+                "a single-device config")
+        raise ValueError(
+            f"{what} ({mode or 'no parallel mode'}, {ranks} rank(s)) needs "
+            f"a process group of {ranks} rank(s), one process and one "
+            f"device each; this process group has {world} (run_torch.py "
+            "--launch N starts one)")
+    return mode
 
 
 class SLAMSystem:
@@ -106,6 +166,12 @@ class SLAMSystem:
 
         self.dataset = get_dataset(cfg, input_folder)
         self.n_img = len(self.dataset)
+        self.n_proc = distributed.world()
+        self.rank = distributed.rank()
+        self.proc0 = self.rank == 0
+        self.parallel = parallel_mode(cfg, self.n_proc)
+        self.pose_solver = str((cfg.get("parallel", {}) or {}).get(
+            "pose_solver", "adam"))
         m = cfg["mapping"]
         self.ckpt_freq = int(m["ckpt_freq"])
         self.mesh_freq = int(m["mesh_freq"])
@@ -126,12 +192,15 @@ class SLAMSystem:
                                                 True))
         t = cfg["tracking"]
         self.vis_draws = TorchDraws(self.seed + VIS_SEED_OFFSET, self.device)
+        # Panels are per-rank debug output: off in a multi-rank run.
         self.track_vis = FrameVisualizer(
-            t["vis_freq"], t["vis_inside_freq"],
+            t["vis_freq"] if self.n_proc == 1 else NEVER,
+            t["vis_inside_freq"],
             os.path.join(self.output, "tracking_vis"), self.scene, self.cam,
             self.vis_draws, self.verbose)
         self.map_vis = FrameVisualizer(
-            m["vis_freq"], m["vis_inside_freq"],
+            m["vis_freq"] if self.n_proc == 1 else NEVER,
+            m["vis_inside_freq"],
             os.path.join(self.output, "mapping_vis"), self.scene, self.cam,
             self.vis_draws, self.verbose)
 
@@ -144,14 +213,27 @@ class SLAMSystem:
         # 680x1200 and 480x640, 8 at ScanNet's 460x620 crop).  The window
         # selector draws over the capacity, so the pad keeps its draws.
         row_pad = 128 // math.gcd(self.cam.H * self.cam.W, 128)
+        if self.parallel == "kf":
+            # The slots split evenly over the ranks, as the JAX package
+            # pads its capacity to the kf mesh.
+            row_pad = row_pad * self.n_proc // math.gcd(row_pad,
+                                                        self.n_proc)
         capacity = -(-(n_keyframes + 2) // row_pad) * row_pad
         # keyframe_device picks the store: the float store, the packed
         # wire format on the device (``cpu``/``packed``), or host imagery
         # behind a device line cache (``host``/``host_staged``).
         self.keyframe_device = str(
             cfg.get("keyframe_device", "device")).lower()
-        self.store = KeyframeStore(capacity, self.cam, self.device,
-                                   mode=store_mode(self.keyframe_device))
+        mode = store_mode(self.keyframe_device)
+        if mode == "host_staged" and self.n_proc > 1:
+            raise ValueError(
+                "keyframe_device: host_staged is single-process; use "
+                "'packed' (what 'cpu' maps to) with parallel.devices or "
+                "parallel.kf_shards")
+        self.store = KeyframeStore(
+            capacity, self.cam, self.device, mode=mode,
+            shard=((self.rank, self.n_proc) if self.parallel == "kf"
+                   else None))
         self.scratch_slot = self.store.capacity - 1
         self.w_max = self.window_size + 2  # picks + last two + current
         if self.store.host_mode:
@@ -163,7 +245,13 @@ class SLAMSystem:
         # Host reads of the selected window (host-staged store only).
         self.selection_fetches = 0
 
-        self.group_tracker = make_group_tracker(cfg, self.scene, self.cam)
+        # Tracking splits its pixel batch over the ranks under ray DP
+        # and runs replicated under kf_shards, as the JAX package hands
+        # the tracker its ray sharding: every rank draws the same pixels
+        # from the same stream and makes the same pose, with no
+        # collective.
+        self.group_tracker = make_group_tracker(
+            cfg, self.scene, self.cam, sharded=self.parallel == "dp")
         self._selector = make_window_selector(
             self.cam, self.store.capacity, self.window_size, self.w_max,
             self.scratch_slot,
@@ -175,12 +263,22 @@ class SLAMSystem:
                 imp: make_window_frame_mapper(cfg, self.scene, self.cam,
                                               self.w_max, importance=imp)
                 for imp in (False, True)}
+        elif self.parallel == "kf":
+            from myslam_torch.parallel.distributed_ba import \
+                make_kf_frame_mapper
+            self._mappers = {
+                imp: make_kf_frame_mapper(
+                    cfg, self.scene, self.cam, self._selector, self.w_max,
+                    self.scratch_slot, importance=imp,
+                    pose_solver=self.pose_solver, packed=self.store.packed)
+                for imp in (False, True)}
         else:
             self._mappers = {
                 imp: make_frame_mapper(cfg, self.scene, self.cam,
                                        self._selector, self.w_max,
                                        self.scratch_slot, importance=imp,
-                                       packed=self.store.packed)
+                                       packed=self.store.packed,
+                                       sharded=self.parallel == "dp")
                 for imp in (False, True)}
         self._iters_first = int(m["iters_first"])
         self._iters = int(m["iters"])
@@ -435,14 +533,17 @@ class SLAMSystem:
             for (rec, k), v in zip(keys, values):
                 rec[k] = v
         lines += pending
-        if lines:
+        if lines and self.proc0:
             with open(self.metrics_path, "a") as f:
                 f.writelines(json.dumps(r) + "\n" for r in lines)
 
     def _reset_metrics(self, start_idx: int) -> None:
         """Keep of metrics.jsonl only the frames before ``start_idx`` (a
         resumed run logs the rest again; a fresh one starts empty), so
-        that after a restart every frame is in the file once."""
+        that after a restart every frame is in the file once.  Rank 0's
+        file."""
+        if not self.proc0:
+            return
         kept = []
         if start_idx > 0 and os.path.exists(self.metrics_path):
             with open(self.metrics_path) as f:
@@ -484,23 +585,26 @@ class SLAMSystem:
         """Rewrite ``<output>/HEARTBEAT`` (the frame and the time): every
         frame, and at each step of finalize, whose checkpoint and mesh
         take seconds; ``run_torch.py --supervise --hang-timeout`` reads
-        its age."""
+        its age.  Rank 0's."""
+        if not self.proc0:
+            return
         with open(os.path.join(self.output, "HEARTBEAT"), "w") as f:
             f.write(f"{idx} {time.time()}\n")
 
     def _beat(self, idx: int) -> None:
         """The heartbeat, and the fault hook the restart tests drive:
-        ``MYSLAM_FAULT_KILL="<frame>[:procid]"`` ends the process (procid
-        0, the only one here) with exit code 21 at the first frame at or
-        after ``<frame>``, once: ``<output>/FAULT_INJECTED`` keeps the
-        restarted run alive."""
+        ``MYSLAM_FAULT_KILL="<frame>[:procid]"`` ends the process of
+        rank ``procid`` (default 0) with exit code 21 at the first frame
+        at or after ``<frame>``, once: ``<output>/FAULT_INJECTED`` keeps
+        the restarted run alive."""
         self._touch_heartbeat(idx)
         fault = os.environ.get("MYSLAM_FAULT_KILL")
         if fault:
             parts = fault.split(":")
             marker = os.path.join(self.output, "FAULT_INJECTED")
             if (idx >= int(parts[0])
-                    and (int(parts[1]) if len(parts) > 1 else 0) == 0
+                    and (int(parts[1]) if len(parts) > 1 else 0)
+                    == distributed.rank()
                     and not os.path.exists(marker)):
                 with open(marker, "w") as f:
                     f.write(f"{idx}\n")
@@ -566,9 +670,14 @@ class SLAMSystem:
     def resume(self, ckpt_path: str | None = None) -> int:
         """Restore the given checkpoint, or the newest one under
         ``<output>/ckpts``; returns the frame to start from (0 if there
-        is none)."""
-        path = ckpt_path or latest_checkpoint(
-            os.path.join(self.output, "ckpts"))
+        is none).  In a multi-rank run rank 0 decides, from its own
+        arguments and folder, and every rank loads the path it
+        broadcasts (a sharded store keeps its own slots)."""
+        path = None
+        if self.proc0:
+            path = ckpt_path or latest_checkpoint(
+                os.path.join(self.output, "ckpts"))
+        path = distributed.broadcast_object(path)
         if path is None:
             return 0
         start = load_checkpoint(path, self)
@@ -582,13 +691,18 @@ class SLAMSystem:
                 else "final_mesh.ply")
 
     def _extract_and_cull_mesh(self, path: str, upto: int,
-                               seconds: dict | None = None) -> str:
+                               seconds: dict | None = None) -> str | None:
         """Extract the current mesh to ``path`` and cull it with frames
         [0, upto) at their estimated poses; returns the culled copy.
-        The two steps' seconds go into ``seconds`` (``mesh``, ``cull``)."""
+        The two steps' seconds go into ``seconds`` (``mesh``, ``cull``).
+        Rank 0 meshes (a sharded store's imagery gathered first, by every
+        rank); the others return None."""
+        store = self.store.full_view()
+        if not self.proc0:
+            return None
         os.makedirs(os.path.dirname(path), exist_ok=True)
         t0 = time.perf_counter()
-        self.mesher.get_mesh(path, self.map_state, self.store)
+        self.mesher.get_mesh(path, self.map_state, store)
         t1 = time.perf_counter()
         # The prefetch thread reads the frames while the device culls.
         frames = ((d, p) for _, (c, d, p) in

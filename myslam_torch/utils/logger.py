@@ -29,6 +29,7 @@ import torch
 
 from myslam_torch.models.convert import decoder_from_jax_numpy, \
     decoder_to_jax_numpy
+from myslam_torch.parallel import distributed
 
 
 def _flatten(tree) -> list:
@@ -58,14 +59,20 @@ def decoder_leaves(decoder) -> list[np.ndarray]:
             for a in _flatten(decoder_to_jax_numpy(decoder))]
 
 
-def save_checkpoint(path: str, slam, idx: int) -> str:
+def save_checkpoint(path: str, slam, idx: int) -> str | None:
     """Write the full SLAM state at frame ``idx`` to ``path``.
 
     Crash-atomic: the file is written to ``<path>.tmp.npz``, synced, then
     renamed over ``path``, so an interrupted write never leaves a
-    truncated file where ``latest_checkpoint`` looks.
+    truncated file where ``latest_checkpoint`` looks.  In a multi-rank
+    run every rank calls this and rank 0 alone writes (returns None
+    elsewhere); a store sharded over the ranks is gathered to rank 0
+    first (``full_view``), so its file is the unsharded store's, byte for
+    byte.
     """
-    store = slam.store
+    store = slam.store.full_view()
+    if distributed.rank() != 0:
+        return None
     n = store.count
     ms = slam.map_state
     if store.mode != "device":
@@ -114,6 +121,19 @@ def save_checkpoint(path: str, slam, idx: int) -> str:
     return path
 
 
+def restore_map(data, ms) -> None:
+    """Copy a checkpoint's map (``sdf_atlas``, ``color_atlas``,
+    ``decoder_leaves``, in the JAX package's tree order) into the
+    MapState ``ms``."""
+    tree = _unflatten(decoder_to_jax_numpy(ms.decoder),
+                      iter(list(data["decoder_leaves"])))
+    with torch.no_grad():
+        ms.sdf_atlas.copy_(torch.from_numpy(np.asarray(data["sdf_atlas"])))
+        ms.color_atlas.copy_(torch.from_numpy(
+            np.asarray(data["color_atlas"])))
+        ms.decoder.load_state_dict(decoder_from_jax_numpy(tree).state_dict())
+
+
 def load_checkpoint(path: str, slam) -> int:
     """Restore a checkpoint into a freshly constructed SLAMSystem of the
     same configuration; returns the first frame still to process.
@@ -121,18 +141,15 @@ def load_checkpoint(path: str, slam) -> int:
     Atlases, decoder, pose lists, keyframe colors and the draw source
     come back bit for bit; the packed and host-staged stores' imagery
     too, the float store's depths within half their quantization step
-    (``kf_depth_inv_q``).
+    (``kf_depth_inv_q``).  A store sharded over ranks takes its own
+    slots' imagery from the file and leaves the rest.
     """
     with np.load(path, allow_pickle=True) as npz:
         data = dict(npz)
     ms = slam.map_state
     dev = ms.sdf_atlas.device
-    tree = _unflatten(decoder_to_jax_numpy(ms.decoder),
-                      iter(list(data["decoder_leaves"])))
+    restore_map(data, ms)
     with torch.no_grad():
-        ms.sdf_atlas.copy_(torch.from_numpy(data["sdf_atlas"]))
-        ms.color_atlas.copy_(torch.from_numpy(data["color_atlas"]))
-        ms.decoder.load_state_dict(decoder_from_jax_numpy(tree).state_dict())
         slam.est.copy_(torch.from_numpy(data["estimate_c2w_list"]))
     slam.gt_poses = np.array(data["gt_c2w_list"], np.float32)
 
@@ -143,18 +160,26 @@ def load_checkpoint(path: str, slam) -> int:
                             (n,))
     colors_u8 = torch.from_numpy(data["kf_colors_u8"])
     depths_u16 = torch.from_numpy(data["kf_depths_u16"])
+    inv_q_t = torch.from_numpy(inv_q.copy())
+    # The file's slots [lo, hi) land in this store's imagery rows
+    # [lo - offset, hi - offset): all of [0, n) unsharded.
+    lo = min(store.slot_offset, n)
+    hi = min(store.slot_offset + store.local_capacity, n)
+    colors_u8, depths_u16, inv_q_t = (colors_u8[lo:hi], depths_u16[lo:hi],
+                                      inv_q_t[lo:hi])
+    rows = hi - lo
     with torch.no_grad():
         if store.mode != "device":
-            for buf, src in zip(store.wire(), (
-                    colors_u8, depths_u16, torch.from_numpy(inv_q.copy()))):
-                buf[:n].copy_(src)
-        elif n:
+            for buf, src in zip(store.wire(), (colors_u8, depths_u16,
+                                               inv_q_t)):
+                buf[:rows].copy_(src)
+        elif rows:
             # The mapper's own conversion, so colors come back bit for bit.
             colors = colors_u8.to(dev).to(torch.float32) * (1.0 / 255.0)
-            store.colors[:n] = colors.to(store.colors.dtype)
+            store.colors[:rows] = colors.to(store.colors.dtype)
             depths = (depths_u16.to(torch.float32)
-                      * torch.from_numpy(inv_q.copy())[:, None, None])
-            store.depths[:n] = depths.to(dev)
+                      * inv_q_t[:, None, None])
+            store.depths[:rows] = depths.to(dev)
         store.est_c2w[:n] = torch.from_numpy(data["kf_est_c2w"]).to(dev)
         store.gt_c2w[:n] = torch.from_numpy(data["kf_gt_c2w"]).to(dev)
     store.count = n

@@ -21,8 +21,20 @@ the newest checkpoint (``--resume``) when it dies, or, with
 ``--hang-timeout S``, when ``<output>/HEARTBEAT`` has not changed for S
 seconds, at most ``--max-restarts`` times; it prints ``SUPERVISOR: ...``
 lines and exits 0 only when a child completes, after which it repeats
-the completed child's JSON line as its own last line.  Single-process
-runs only: the multi-process gang (``--launch``) is not ported.
+the completed child's JSON line as its own last line.
+
+``--launch N`` runs the job as a gang of N ranks, one process and one
+device each (rank r on ``cuda:(r % device_count)``, or all on the CPU
+with ``--device cpu``), for configs whose ``parallel.devices`` or
+``parallel.kf_shards`` is N or 0: the kernels are built once, then N
+copies of this script start with ``--nproc N --procid r --coordinator
+host:port``; the launcher polls them and, when one exits abnormally,
+kills the others and exits with its code.  Ranks share a GPU over gloo
+and use NCCL when each has its own (``parallel/distributed.py``).  Rank
+0 alone writes the outputs and prints the JSON line; every other rank
+prints ``RANK r: resumed_from S``.  Under ``--supervise --launch N`` a
+death of any rank restarts the whole gang from rank 0's newest
+checkpoint; ``MYSLAM_FAULT_KILL="<frame>:<rank>"`` kills one rank once.
 """
 
 from __future__ import annotations
@@ -50,6 +62,15 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in the output "
                         "folder (the full state, map included)")
+    gang = p.add_argument_group("multi-process gang")
+    gang.add_argument("--launch", type=int, default=1,
+                      help="run as a gang of N ranks on this machine")
+    gang.add_argument("--nproc", type=int, default=1,
+                      help="ranks in the gang (set by --launch)")
+    gang.add_argument("--procid", type=int, default=0,
+                      help="this process's rank (set by --launch)")
+    gang.add_argument("--coordinator", default=None,
+                      help="host:port of rank 0 (set by --launch)")
     sup = p.add_argument_group("failure detection and restart")
     sup.add_argument("--supervise", action="store_true",
                      help="run the job as a child and restart it from the "
@@ -68,17 +89,55 @@ def main(argv=None) -> dict | int:
     args = parse_args(argv)
     if args.supervise:
         return supervise(args)
+    if args.launch > 1:
+        return launch_local(args)
 
+    import torch
+
+    from myslam_torch.parallel import distributed
+
+    device = args.device
+    if args.nproc > 1:
+        if not (0 <= args.procid < args.nproc) or not args.coordinator:
+            raise SystemExit("--nproc needs --procid in [0, nproc) and "
+                             "--coordinator host:port (--launch N sets "
+                             "them)")
+        distributed.init_distributed(args.coordinator, args.nproc,
+                                     args.procid, args.device)
+        device = distributed.rank_device(args.procid, args.device)
+        # The ranks share this machine's cores.
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1)
+                                         // args.nproc)))
+    try:
+        return run(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def run(args, device) -> dict | None:
+    """The job of one process: the loop, finalize, and (rank 0) the JSON
+    line, with this process's K1/K2 launches over the two (``launches``;
+    every other rank prints its own on a ``RANK r: launches`` line)."""
     from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.ops import cuda_sample
     from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
 
     cfg = load_config(args.config, DEFAULT_CONFIG)
     t0 = time.perf_counter()
     slam = SLAMSystem(cfg, input_folder=args.input_folder,
-                      output=args.output, seed=args.seed, device=args.device)
+                      output=args.output, seed=args.seed, device=device)
     start = slam.resume() if args.resume else 0
+    if not slam.proc0:
+        print(f"RANK {slam.rank}: resumed_from {start}", flush=True)
+    cuda_sample.reset_launches()
     slam.run(start)
     t_end = time.perf_counter()
+    launches = dict(cuda_sample.LAUNCHES)
+    if not slam.proc0:
+        print(f"RANK {slam.rank}: launches {json.dumps(launches)}",
+              flush=True)
+        return None
     ate = slam.ate()
     out = {
         "device": str(slam.device),
@@ -89,9 +148,39 @@ def main(argv=None) -> dict | int:
         "wall_s": slam.drain_wall - t0,
         "final_mesh": slam.final_mesh,
         "finalize_s": t_end - slam.drain_wall,
+        "launches": launches,
     }
     print(json.dumps(out), flush=True)
     return out
+
+
+def launch_local(args) -> int:
+    """Start ``args.launch`` ranks of this script on this machine and
+    wait for them (``multiproc.wait_gang``: the first abnormal exit
+    kills the rest and is returned)."""
+    from myslam_torch.parallel.multiproc import free_port, prebuild, \
+        wait_gang
+
+    prebuild(args.device)
+    base = [sys.executable, os.path.abspath(__file__), args.config,
+            "--seed", str(args.seed), "--nproc", str(args.launch),
+            "--coordinator", f"127.0.0.1:{free_port()}"]
+    for flag, value in (("--input_folder", args.input_folder),
+                        ("--output", args.output),
+                        ("--device", args.device)):
+        if value:
+            base += [flag, value]
+    if args.resume:
+        base.append("--resume")
+    procs = [subprocess.Popen(base + ["--procid", str(r)])
+             for r in range(args.launch)]
+    try:
+        rc, _ = wait_gang(procs)
+    except BaseException:
+        for pr in procs:
+            pr.kill()
+        raise
+    return rc
 
 
 def _output_dir(args) -> str:
@@ -127,6 +216,8 @@ def supervise(args) -> int:
                         ("--device", args.device)):
         if value:
             base += [flag, value]
+    if args.launch > 1:
+        base += ["--launch", str(args.launch)]
     restarts = 0
     while True:
         resume = args.resume or restarts > 0

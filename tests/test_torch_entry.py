@@ -3,7 +3,8 @@
   * ``run_torch.py --device cpu`` completes a tiny synthetic run, reports
     a finite ATE and writes the final mesh and its culled copy;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
-  * no module of ``myslam_torch/``, nor ``chip_smoke.py``,
+  * no module of ``myslam_torch/`` (``parallel/`` included, and the
+    tests' gang harness ``tests/torch_gang.py``), nor ``chip_smoke.py``,
     ``run_torch.py``, ``bench_torch.py`` or ``visualizer_torch.py``,
     imports JAX, the JAX package, OpenCV, Pillow, matplotlib or open3d
     (checked on the sources' import statements): the port reads and
@@ -79,6 +80,23 @@ def test_port_never_imports_jax_or_the_jax_package():
                 bad.append(f"{rel}: {name} (in {fn or 'the module'})")
     assert not bad, bad
     assert lazy == LAZY_BACKENDS
+
+
+def test_the_gang_imports_no_jax():
+    """The multi-process modules (myslam_torch/parallel/) are among the
+    checked sources and import none of FORBIDDEN; nor does the tests'
+    gang harness, whose ranks run without JAX."""
+    parallel = sorted(
+        os.path.join(REPO, "myslam_torch", "parallel", f) for f in
+        ("__init__.py", "distributed.py", "distributed_ba.py",
+         "multiproc.py"))
+    assert set(parallel) <= set(_port_sources())
+    for path in parallel + [os.path.join(REPO, "tests", "torch_gang.py")]:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        names = [name for _, name in _imports(tree)]
+        assert not [n for n in names
+                    if n.split(".")[0] in FORBIDDEN], path
 
 
 def _tiny_config(tmp_path):
