@@ -180,7 +180,36 @@ per mapping iteration:
   * gang_resume   -- ``run_torch.py --launch 2 --supervise`` on phase dp's
                      config with rank 1 killed at frame 9: one restart,
                      both ranks resumed at frame 9, the final trajectory
-                     within GANG_RESUME_GATE_M of phase dp's.
+                     within GANG_RESUME_GATE_M of phase dp's;
+  and beside them
+  * kf_dp         -- kf_shards x devices on a 2 x 2 grid (4 ranks), frame
+                     0 cut to KF_DP_ITERS_FIRST iterations: every rank's
+                     trajectory bit for bit, one gradient all-reduce per
+                     iteration, the imagery per rank;
+  then, each alone:
+  * pipeline      -- the track||map pipeline (``parallel.pipeline``: rank 0
+                     tracks, rank 1 maps): every frame within
+                     PIPELINE_GATE_M of phase slam's, every boundary's
+                     snapshot the map of the boundary before (sha256 as
+                     sent and as taken); the snapshot's bytes and ms,
+                     each role's frame ms, the steady group walls beside
+                     phase slam's;
+  * map_shards    -- banded map shards (``parallel.map_shards: 2``) cut to
+                     MAP_SHARDS_FRAMES frames and MAP_SHARDS_ITERS_FIRST
+                     frame-0 iterations: the banded K1/K2 launches, every
+                     rank's replicated map bit for bit, within
+                     MAP_SHARDS_GATE_M of one rank's run of the same cut
+                     schedule, made twice (the pair within it too); each
+                     rank's atlas and Adam bytes, the features
+                     all-reduce's bytes and ms per sample call;
+  * bigstep       -- ``multiproc.run_bigstep`` (2 ranks, ray DP and then
+                     keyframe-sharded BA): three 15-iteration chunks each
+                     at the Replica operating point, seconds per chunk
+                     and peak RSS per rank.
+Phase kernels also holds the banded K1/K2 (a map shard's sample) against
+their plain banded versions on both bands of the mapping SDF sample
+(160,000 ray-ordered points, 12,219-row bf16 quad), their sum over the
+bands against the unbanded plain forward.
 
 The build fails the run if ptxas reports a register spill in K1, K2 or
 K3.  Then the card's name and power limit, the kernels line (K1's, K2's
@@ -197,9 +226,12 @@ image renderer's chunk as ``ms_image`` / ``ms_image_graph`` with its
 bound, plain and library times, and K1's and K2's launches in phase 14
 as ``launches_vis``; K1's and K2's launches per rank in the gang's
 phases as ``launches_dp``, ``launches_kf_schur`` (the pose system's
-alone as ``launches_kf_schur_pose_system``) and
-``launches_gang_resume``, and K2's at the Schur pullback as
-``ms_schur_p_grad_only``), and last
+alone as ``launches_kf_schur_pose_system``), ``launches_gang_resume``,
+``launches_pipeline``, ``launches_map_shards`` and ``launches_kf_dp``,
+and K2's at the Schur pullback as ``ms_schur_p_grad_only`` with its
+bound; the banded K1 / K2 as kernels of their own, band 0's times and
+both bands' as ``ms_bands``, their launches in phase map_shards), and
+last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero without that last line; so does a machine without
 a GPU.  There is no CPU path.
@@ -337,6 +369,25 @@ KF_SCHUR_EVERY_ATE_CM = 4.0
 # The least that phase kf_schur_every's mapping must move a stored
 # keyframe in some frame: the solve moved the poses.
 BA_MOVE_MIN_M = 1e-4
+# Phase pipeline: the JAX package's gate of the pipeline's trajectory
+# against the serial run's, per frame (tests/test_pipeline.py:54-59).
+PIPELINE_GATE_M = 0.02
+# Phase map_shards: room.yaml at full width cut in depth (each mapping
+# iteration all-reduces the (N, 256) float32 features of every sample
+# call, ~213 MB, through the host): 5 frames, 100 frame-0 iterations.
+MAP_SHARDS_FRAMES = 5
+MAP_SHARDS_ITERS_FIRST = 100
+# Its gate: 3x the largest per-frame distance between two one-rank runs
+# of that schedule on the card (K2's atomics): 0.0458 mm over 32 pairs,
+# the gang 0.014-0.057 mm from one rank (PERF.md).
+MAP_SHARDS_GATE_M = 1.37e-4
+# Phase kf_dp: kf_shards x devices on a K x D grid of ranks, its frame 0
+# cut to 200 iterations for the script's time (beside four other gangs
+# frame 0's 1,000 took 146 s on an H100, PERF.md).
+KF_DP_GRID = (2, 2)
+KF_DP_ITERS_FIRST = 200
+# Phase bigstep: mapping chunks of run_bigstep over GANG_RANKS ranks.
+BIGSTEP_CHUNKS = 3
 EMIT_LOCK = threading.Lock()
 
 
@@ -640,6 +691,122 @@ def check_kernels(cfg, layouts, cases=KERNEL_CASES,
     return records
 
 
+def band_rows(band, p_nor) -> tuple[int, int, int]:
+    """(distinct band rows the owned points touch, owned (point, plane)
+    pairs, (point, level) pairs with an owned plane: the gbar rows the
+    backward needs) of these points on one shard's band."""
+    import torch
+
+    from myslam_torch.ops import cuda_sample
+
+    p = p_nor.detach().float().cpu()
+    touched = owned_pairs = 0
+    levels = torch.zeros((band.n_levels, p.shape[0]), dtype=torch.bool)
+    for lvl, _, au, av, H, W, off, y_lo, bh in band.planes():
+        row, owned, *_ = cuda_sample.band_coords(p, au, av, H, W, off, y_lo,
+                                                 bh, band.total_rows)
+        touched += int(torch.unique(row[owned]).numel())
+        owned_pairs += int(owned.sum())
+        levels[lvl] |= owned
+    return touched, owned_pairs, int(levels.sum())
+
+
+def check_banded(cfg, layout, n_bands: int = 2) -> dict:
+    """Banded K1 and K2 (the map shards' sample) against their plain
+    banded versions at the mapping SDF sample on the loop's ray-ordered
+    points (160,000), on each of ``n_bands`` bands of the SDF atlas's
+    bf16 quad, within 1e-5 of the largest value; the shards' forward
+    summed against the unbanded plain forward; ms (events and graph),
+    the plain versions' ms and the bounds (the points, the owned rows
+    touched and the output once; K2: gbar of the (point, level) pairs
+    with an owned plane, the points, p_grad, the owned rows read and
+    their gradient written; 2 and 7 f32 operations per owned (point,
+    plane, lane))."""
+    import torch
+
+    from myslam_torch.ops import cuda_sample
+    from myslam_torch.parallel import plane_shard as tps
+    from myslam_torch.tools.bench_sample_bwd import loop_points
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    C, L = layout.c_dim, layout.n_levels
+    C4 = 4 * C
+    p_nor = loop_points(cfg, KERNEL_CASES[0][1], dev, SEED, 0)
+    n = p_nor.shape[0]
+    atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
+                               device=dev)
+    gbar = torch.randn((n, L * C4), generator=gen, device=dev)
+    ts = tps.ShardedPlaneLayout(layout, n_bands)
+    rows = ts.local_rows
+    sharded = torch.as_tensor(ts.shard_atlas(atlas.cpu().numpy())).to(dev)
+    bands, fwd_sum = [], 0
+    for d in range(n_bands):
+        last = d == n_bands - 1
+        nxt = sharded[(d if last else d + 1) * rows:][:rows]
+        quad = tps.pack_local(sharded[d * rows:(d + 1) * rows],
+                              tps.first_rows(nxt, ts), ts, last).to(
+            torch.bfloat16).contiguous()
+        band = ts.band(d)
+        out = cuda_sample.plane_sample_fwd_banded(quad, band, p_nor)
+        ref = cuda_sample.plane_sample_fwd_banded_ref(quad, band, p_nor)
+        qg, pg = cuda_sample.plane_sample_bwd_banded(gbar, quad, band, p_nor)
+        rqg, rpg = cuda_sample.plane_sample_bwd_banded_ref(gbar, quad, band,
+                                                           p_nor)
+        torch.cuda.synchronize()
+        errs = {what: scaled_err(got, want) for what, got, want in (
+            ("fwd", out, ref), ("quad_grad", qg, rqg), ("p_grad", pg, rpg))}
+        # Tolerance: K1's and K2's (the same products, FMA-contracted,
+        # summed in another order): 1e-5 of the largest value.
+        for what, (_, rel) in errs.items():
+            if not rel <= 1e-5:
+                raise AssertionError(f"banded {what}, band {d}: error "
+                                     f"{rel:.3e} of the largest value")
+        fwd_sum = fwd_sum + out
+        touched, pairs, owned_levels = band_rows(band, p_nor)
+        f_bytes = n * 3 * 4 + touched * C4 * 2 + n * L * C4 * 4
+        # K2 needs gbar only where the point owns a plane of the level.
+        b_bytes = (owned_levels * C4 * 4 + 2 * n * 3 * 4
+                   + touched * C4 * (2 + 4))
+        f_ms, f_by = bound_ms(f_bytes, 2 * pairs * C4)
+        b_ms, b_by = bound_ms(b_bytes, 7 * pairs * C4)
+        bands.append({
+            "band": d, "band_rows": rows, "rows_touched": touched,
+            "owned_point_planes": pairs, "owned_point_levels": owned_levels,
+            "fwd": {"max_abs_err": errs["fwd"][0], **kernel_times(
+                lambda: cuda_sample.plane_sample_fwd_banded(quad, band,
+                                                            p_nor)),
+                "plain_ms": time_ms(
+                    lambda: cuda_sample.plane_sample_fwd_banded_ref(
+                        quad, band, p_nor), reps=5),
+                "library_ms": None, "bytes": f_bytes, "bound_ms": f_ms,
+                "bound_by": f_by},
+            "bwd": {"max_abs_err": max(errs["quad_grad"][0],
+                                       errs["p_grad"][0]),
+                    **kernel_times(lambda: cuda_sample.plane_sample_bwd_banded(
+                        gbar, quad, band, p_nor)),
+                    "plain_ms": time_ms(
+                        lambda: cuda_sample.plane_sample_bwd_banded_ref(
+                            gbar, quad, band, p_nor), reps=5),
+                    "library_ms": None, "bytes": b_bytes, "bound_ms": b_ms,
+                    "bound_by": b_by}})
+        del out, ref, qg, pg, rqg, rpg
+    from myslam_torch.ops.plane_sample import pack_quad
+
+    whole = cuda_sample.plane_sample_fwd_ref(
+        pack_quad(atlas, layout).to(torch.bfloat16), layout, p_nor)
+    _, sum_rel = scaled_err(fwd_sum, whole)
+    if not sum_rel <= 1e-5:
+        raise AssertionError(f"banded forward summed over the bands: error "
+                             f"{sum_rel:.3e} of the largest value")
+    out = {"phase": "kernels", "case": "banded", "layout": "sdf",
+           "rows": layout.total_rows, "points": n, "bands": n_bands,
+           "quad_dtype": "bfloat16", "sum_rel_err": sum_rel,
+           "per_band": bands}
+    emit(out)
+    return out
+
+
 def check_mesh_chunk(cfg, layout) -> dict:
     """K1 at the meshing path's call: the middle chunk of the final SDF
     volume (whole x-rows of the grid, z fastest; utils/mesher.py), on a
@@ -933,6 +1100,7 @@ def run_slam(cfg, phase: str = "slam",
         "color_rows": slam.color_layout.total_rows,
         "tracked_frames": len(tracked), "mapped_frames": len(mapped),
         "track_ms_mean": float(np.mean([r["track_ms"] for r in tracked])),
+        "track_ms": [r["track_ms"] for r in tracked],
         "map_ms_steady_mean": float(np.mean(steady)),
         "map_ms_steady": steady,
         "map_ms_frame0": mapped[0]["map_ms"],
@@ -942,6 +1110,8 @@ def run_slam(cfg, phase: str = "slam",
         "panel_launches": launch_sum(panels), "panels": len(panels),
         "calls": sample_calls(slam),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "frame_start_s": [t - slam.frame_start_wall[0]
+                          for t in slam.frame_start_wall],
     }
     return out, slam
 
@@ -1970,24 +2140,40 @@ def gang_expected(rec: dict) -> dict:
     coarse = sum(n for n, imp in zip(rec["map_iters"], rec["map_importance"])
                  if imp)
     return {"plane_sample_fwd": SAMPLES_PER_ITER * its + coarse,
-            "plane_sample_bwd": SAMPLES_PER_ITER * its}
+            "plane_sample_bwd": SAMPLES_PER_ITER * its,
+            "plane_sample_fwd_banded": 0, "plane_sample_bwd_banded": 0}
 
 
-def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0) -> list:
-    """SLAMSystem's loop on ``config`` over GANG_RANKS ranks on the card
-    (``multiproc.launch``, ``run_system``: each rank counts its K1/K2
+def banded_expected(rec: dict) -> dict:
+    """Launches one rank of the map shards must make: K1/K2 for tracking
+    (the replicated map), the banded K1/K2 for mapping (the bands)."""
+    t_its = rec["tracked_frames"] * rec["track_iters"]
+    m_its = sum(rec["map_iters"])
+    coarse = sum(n for n, imp in zip(rec["map_iters"], rec["map_importance"])
+                 if imp)
+    return {"plane_sample_fwd": SAMPLES_PER_ITER * t_its,
+            "plane_sample_bwd": SAMPLES_PER_ITER * t_its,
+            "plane_sample_fwd_banded": SAMPLES_PER_ITER * m_its + coarse,
+            "plane_sample_bwd_banded": SAMPLES_PER_ITER * m_its}
+
+
+def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
+             ranks: int = GANG_RANKS, frames: int = N_FRAMES,
+             grads: bool = True, expected=gang_expected) -> list:
+    """SLAMSystem's loop on ``config`` over ``ranks`` ranks on the card
+    (``multiproc.launch``, ``run_system``: each rank counts its kernel
     launches from zero around the loop).  Every rank must finish, hold
     rank 0's trajectory bit for bit, stay under ``ate_gate_cm`` ATE,
-    launch K1/K2 as its iterations say, and make one gradient all-reduce
-    per mapping iteration.  Emits one line per rank; returns the ranks'
-    records."""
+    launch the kernels as its iterations say (``expected``), and with
+    ``grads`` make one gradient all-reduce per mapping iteration.  Emits
+    one line per rank; returns the ranks' records."""
     import numpy as np
 
     from myslam_torch.parallel import multiproc
 
     t0 = time.perf_counter()
-    recs = multiproc.launch(GANG_RANKS, loop="system", config=config,
-                            device=DEVICE, seed=SEED, frames=N_FRAMES,
+    recs = multiproc.launch(ranks, loop="system", config=config,
+                            device=DEVICE, seed=SEED, frames=frames,
                             timeout=900)
     wall = time.perf_counter() - t0
     # Plain lists, but the trajectories.
@@ -1996,7 +2182,7 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0) -> list:
             for rec in recs]
     for r, rec in enumerate(recs):
         est = np.asarray(rec["est"])
-        if (rec["rank"] != r or est.shape != (N_FRAMES, 4, 4)
+        if (rec["rank"] != r or est.shape != (frames, 4, 4)
                 or not np.isfinite(est).all()
                 or not np.array_equal(est, np.asarray(recs[0]["est"]))):
             raise AssertionError(f"{phase}: rank {r}'s trajectory is not "
@@ -2004,34 +2190,38 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0) -> list:
         if not rec["ate_rmse_cm"] < ate_gate_cm:
             raise AssertionError(f"{phase}: ATE {rec['ate_rmse_cm']} cm, "
                                  f"gate {ate_gate_cm}")
-        want = gang_expected(rec)
+        want = expected(rec)
         got = {n: rec["launches"][n] - rec["schur_launches"].get(n, 0)
                for n in want}
         if got != want or rec["launches"]["plane_sample_fwd_smem"]:
             raise AssertionError(f"{phase}: rank {r} launches "
                                  f"{rec['launches']} (pose system "
                                  f"{rec['schur_launches']}), loop {want}")
-        if rec["grad_allreduces"] != rec["map_iters"]:
+        if grads and rec["grad_allreduces"] != rec["map_iters"]:
             raise AssertionError(
                 f"{phase}: rank {r} gradient all-reduces per mapped frame "
                 f"{rec['grad_allreduces']}, iterations {rec['map_iters']}")
-        grad = rec["collectives"]["grad"]
+        grad = rec["collectives"].get("grad", {"bytes": 0, "calls": 0,
+                                              "seconds": 0.0})
+        calls = max(grad["calls"], 1)
         emit({"phase": phase, "rank": r, "backend": rec["backend"],
               "device": rec["device"], "parallel": rec["parallel"],
-              "pose_solver": rec["pose_solver"], "frames": N_FRAMES,
+              "pipeline_role": rec["pipeline_role"],
+              "pose_solver": rec["pose_solver"], "frames": frames,
               "ate_rmse_cm": rec["ate_rmse_cm"], "wall_s": rec["wall_s"],
               "track_ms": rec["track_ms"], "map_ms": rec["map_ms"],
               "map_frames": rec["map_frames"], "map_iters": rec["map_iters"],
-              "track_ms_mean": float(np.mean(rec["track_ms"])),
-              "map_ms_frame0": rec["map_ms"][0],
-              "map_ms_steady_mean": float(np.mean(rec["map_ms"][1:])),
+              "track_ms_mean": (float(np.mean(rec["track_ms"]))
+                                if rec["track_ms"] else None),
+              "map_ms_frame0": rec["map_ms"][0] if rec["map_ms"] else None,
+              "map_ms_steady_mean": (float(np.mean(rec["map_ms"][1:]))
+                                     if len(rec["map_ms"]) > 1 else None),
               "launches": rec["launches"],
               "schur_launches": rec["schur_launches"],
               "grad_allreduces_per_mapped_frame": rec["grad_allreduces"],
               "ba_moves_m": rec["ba_moves_m"],
-              "grad_allreduce_bytes": grad["bytes"] // grad["calls"],
-              "grad_allreduce_ms_mean": 1e3 * grad["seconds"]
-              / grad["calls"],
+              "grad_allreduce_bytes": grad["bytes"] // calls,
+              "grad_allreduce_ms_mean": 1e3 * grad["seconds"] / calls,
               "collectives": rec["collectives"],
               "peak_mem_gb": rec["peak_mem_gb"],
               "ckpt_extra_mem_bytes": rec["ckpt_extra_mem_bytes"],
@@ -2196,6 +2386,11 @@ def check_schur_pullback(system) -> dict:
     if not rel <= 1e-5:
         raise AssertionError(f"K2 at the Schur pullback: error {rel:.3e} "
                              "of the largest value exceeds 1e-5")
+    from myslam_torch.tools.bench_sample_bwd import row_updates
+
+    b_ms, b_by, b_bytes = bwd_bound(
+        p_nor.shape[0], layout, quad.element_size(),
+        row_updates(layout, p_nor, cuda_sample.BWD_RUN), False)
     out = {"phase": "kernels", "case": "schur_pullback", "rays": n_rays,
            "points": p_nor.shape[0], "layout_rows": layout.total_rows,
            "quad_dtype": str(quad.dtype).replace("torch.", ""),
@@ -2206,7 +2401,8 @@ def check_schur_pullback(system) -> dict:
                                           need_quad_grad=False)),
                "plain_ms": time_ms(lambda: cuda_sample.plane_sample_bwd_ref(
                    gbar, quad, layout, p_nor, need_quad_grad=False),
-                   reps=5)}}
+                   reps=5),
+               "bytes": b_bytes, "bound_ms": b_ms, "bound_by": b_by}}
     emit(out)
     return out
 
@@ -2283,6 +2479,233 @@ def run_gang_resume(dp_recs: list, again: Background) -> dict:
     return out
 
 
+def group_walls(start_s: list, bounds: list) -> list:
+    """Seconds between the starts of consecutive mapped frames after the
+    first two (the steady groups)."""
+    return [start_s[b] - start_s[a] for a, b in zip(bounds[1:-1],
+                                                    bounds[2:])]
+
+
+def run_pipeline(slam_rec: dict, slam_est) -> dict:
+    """Phase pipeline: the track||map pipeline (``parallel.pipeline``) on
+    GANG_RANKS ranks, rank 0 tracking and rank 1 mapping, on room.yaml
+    at full width for N_FRAMES frames.  Gates: the ranks' trajectories
+    bit for bit and ATE (run_gang), every frame within PIPELINE_GATE_M
+    of phase slam's, and every boundary's snapshot the map of the
+    boundary before (after frame 0's mapping at frame 0), as the map
+    role sent it and the track role took it (sha256 of the bytes).
+    Reports the snapshot's bytes and ms per boundary, each role's
+    tracked- and mapped-frame ms and the steady group walls beside phase
+    slam's."""
+    import numpy as np
+
+    recs = run_gang("pipeline", gang_config("pipeline", {"pipeline": True}),
+                    grads=False)
+    track, mapr = recs
+    if (track["pipeline_role"], mapr["pipeline_role"]) != ("track", "map"):
+        raise AssertionError("pipeline: rank 0 must track, rank 1 map")
+    vs_slam = translation_diff(np.asarray(track["est"]), slam_est)
+    if not vs_slam.max() < PIPELINE_GATE_M:
+        raise AssertionError(f"pipeline: {vs_slam} m from phase slam's "
+                             f"trajectory; gate {PIPELINE_GATE_M} m")
+    posted, mapped = (mapr["snapshots"]["posted"],
+                      mapr["snapshots"]["mapped"])
+    want = [mapped[0]] + mapped[:len(posted) - 1]
+    if (not posted or posted != want
+            or track["snapshots"]["taken"] != posted):
+        raise AssertionError(
+            f"pipeline: snapshots posted {posted}, taken "
+            f"{track['snapshots']['taken']}, maps {mapped}")
+    bounds = mapr["map_frames"]
+    snap_t, snap_m = (track["collectives"]["snapshot"],
+                      mapr["collectives"]["snapshot"])
+    out = {"phase": "pipeline_summary", "ranks": GANG_RANKS,
+           "backend": track["backend"], "boundaries": bounds,
+           "snapshot_bytes": snap_m["bytes"] // snap_m["calls"],
+           "snapshots": snap_m["calls"],
+           "snapshot_send_ms_mean": 1e3 * snap_m["seconds"]
+           / snap_m["calls"],
+           "snapshot_wait_ms_mean": 1e3 * snap_t["seconds"]
+           / snap_t["calls"],
+           "poses": mapr["collectives"]["poses"],
+           # The first group carries the track rank's first kernel
+           # launches (in phase slam, frame 0's mapping takes them).
+           "track_ms": track["track_ms"],
+           "track_ms_steady_mean": float(np.mean(
+               track["track_ms"][bounds[1]:])),
+           "map_ms_frame0": mapr["map_ms"][0],
+           "map_ms_steady_mean": float(np.mean(mapr["map_ms"][1:])),
+           "slam_track_ms_mean": slam_rec["track_ms_mean"],
+           "slam_track_ms_steady_mean": float(np.mean(
+               slam_rec["track_ms"][bounds[1]:])),
+           "slam_map_ms_steady_mean": slam_rec["map_ms_steady_mean"],
+           "group_walls_s": group_walls(track["frame_start_s"], bounds),
+           "slam_group_walls_s": group_walls(slam_rec["frame_start_s"],
+                                             bounds),
+           "drain_s": track["drain_s"], "ate_rmse_cm": track["ate_rmse_cm"],
+           "max_translation_diff_vs_slam_m": float(vs_slam.max()),
+           "gate_m": PIPELINE_GATE_M,
+           "launches": [r["launches"] for r in recs]}
+    emit(out)
+    return out
+
+
+def one_rank_runs(config: str, runs: int):
+    """``runs`` runs of the map_shards config's schedule on one rank
+    (MAP_SHARDS_FRAMES frames): their trajectories, ATEs (cm) and the
+    atlas bytes."""
+    import torch
+
+    from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    cfg = load_config(config, DEFAULT_CONFIG)
+    cfg["parallel"] = {}
+    cfg["data"]["n_frames"] = MAP_SHARDS_FRAMES
+    est, ate = [], []
+    for _ in range(runs):
+        single = SLAMSystem(cfg, seed=SEED, device=DEVICE)
+        single.run_loop()
+        est.append(single.estimates)
+        ate.append(single.ate()["absolute_translational_error.rmse"]
+                   * 100.0)
+        atlas = sum(t.numel() * t.element_size() for t in (
+            single.map_state.sdf_atlas, single.map_state.color_atlas))
+        del single
+        torch.cuda.empty_cache()
+    return est, ate, atlas
+
+
+def run_map_shards() -> dict:
+    """Phase map_shards: banded map shards (``parallel.map_shards``) on
+    GANG_RANKS ranks on room.yaml at full width, cut to
+    MAP_SHARDS_FRAMES frames and MAP_SHARDS_ITERS_FIRST frame-0
+    iterations.  One rank's run of the same schedule is made twice
+    first: the pair's distance is the card's spread on this schedule (K2's
+    atomics).  Gates: ATE and the ranks' trajectories bit for bit
+    (run_gang), every rank's replicated map bit for bit, and every frame
+    of the pair's and of the gang's run against the first one-rank run
+    within MAP_SHARDS_GATE_M.  Reports each rank's atlas bytes (its
+    bands) and Adam bytes against one rank's, the features all-reduce's
+    bytes and ms per sample call by size, and the banded K1/K2 launches.
+    The summary is printed before a gate raises."""
+    import numpy as np
+
+    config = gang_config("map_shards", {"map_shards": GANG_RANKS},
+                         {"iters_first": MAP_SHARDS_ITERS_FIRST})
+    one_est, one_ate, one_atlas = one_rank_runs(config, 2)
+    pair = translation_diff(one_est[1], one_est[0])
+    recs = run_gang("map_shards", config, frames=MAP_SHARDS_FRAMES,
+                    grads=False, expected=banded_expected)
+    vs_one = translation_diff(np.asarray(recs[0]["est"]), one_est[0])
+    features = {}
+    for kind, nbytes, sec in recs[0]["trace"]:
+        if kind == "features":
+            f = features.setdefault(str(int(nbytes)), {"calls": 0,
+                                                       "ms": 0.0})
+            f["calls"] += 1
+            f["ms"] += 1e3 * float(sec)
+    for f in features.values():
+        f["ms_mean"] = f.pop("ms") / f["calls"]
+    out = {"phase": "map_shards_summary", "ranks": GANG_RANKS,
+           "frames": MAP_SHARDS_FRAMES,
+           "iters_first": MAP_SHARDS_ITERS_FIRST,
+           "atlas_bytes": [r["map_atlas_bytes"] for r in recs],
+           "adam_bytes": [2 * r["map_atlas_bytes"] for r in recs],
+           "one_rank_atlas_bytes": one_atlas,
+           "one_rank_adam_bytes": 2 * one_atlas,
+           "features_by_bytes": features,
+           "collectives": recs[0]["collectives"],
+           "launches": [r["launches"] for r in recs],
+           "ate_rmse_cm": recs[0]["ate_rmse_cm"],
+           "one_rank_ate_rmse_cm": one_ate,
+           "one_rank_pair_diff_m": pair.tolist(),
+           "max_translation_diff_one_rank_pair_m": float(pair.max()),
+           "translation_diff_vs_one_rank_m": vs_one.tolist(),
+           "max_translation_diff_vs_one_rank_m": float(vs_one.max()),
+           "gate_m": MAP_SHARDS_GATE_M,
+           "maps_equal": len({r["map_digest"] for r in recs}) == 1,
+           "track_ms_mean": float(np.mean(recs[0]["track_ms"])),
+           "map_ms_frame0": recs[0]["map_ms"][0],
+           "map_ms_steady_mean": float(np.mean(recs[0]["map_ms"][1:]))}
+    emit(out)
+    if not out["maps_equal"]:
+        raise AssertionError("map_shards: the ranks' replicated maps differ")
+    if not pair.max() < MAP_SHARDS_GATE_M:
+        raise AssertionError(f"map_shards: one rank's two runs {pair} m "
+                             f"apart; gate {MAP_SHARDS_GATE_M} m")
+    if not vs_one.max() < MAP_SHARDS_GATE_M:
+        raise AssertionError(f"map_shards: {vs_one} m from one rank's run; "
+                             f"gate {MAP_SHARDS_GATE_M} m")
+    return out
+
+
+def run_kf_dp() -> dict:
+    """Phase kf_dp: kf_shards x devices on a KF_DP_GRID grid of ranks on
+    room.yaml at full width for N_FRAMES frames, frame 0 cut to
+    KF_DP_ITERS_FIRST iterations.  Gates (run_gang): ATE,
+    every rank's trajectory rank 0's bit for bit, one gradient
+    all-reduce per mapping iteration; and each rank's keyframe imagery
+    at most half the single-rank store's plus a slot.  Reports the
+    imagery per rank."""
+    from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    k, d = KF_DP_GRID
+    config = gang_config("kf_dp", {"kf_shards": k, "devices": d},
+                         {"iters_first": KF_DP_ITERS_FIRST})
+    single_cfg = load_config(config, DEFAULT_CONFIG)
+    single_cfg["parallel"] = {}
+    single = SLAMSystem(single_cfg, seed=SEED, device=DEVICE).store
+    single_bytes = single.imagery_bytes()
+    slot_bytes = single_bytes // single.capacity
+    del single
+    recs = run_gang("kf_dp", config, ranks=k * d)
+    for r, rec in enumerate(recs):
+        if not rec["store_imagery_bytes"] <= single_bytes / k + slot_bytes:
+            raise AssertionError(
+                f"kf_dp: rank {r} holds {rec['store_imagery_bytes']} bytes "
+                f"of imagery; one rank's store {single_bytes}")
+    out = {"phase": "kf_dp_summary", "grid": [k, d],
+           "store_imagery_bytes": [r["store_imagery_bytes"] for r in recs],
+           "single_rank_store_imagery_bytes": single_bytes,
+           "ate_rmse_cm": recs[0]["ate_rmse_cm"],
+           "grad_allreduce_bytes": recs[0]["collectives"]["grad"]["bytes"]
+           // recs[0]["collectives"]["grad"]["calls"],
+           "launches": [r["launches"] for r in recs],
+           "peak_mem_gb": [r["peak_mem_gb"] for r in recs],
+           "wall_s": [r["wall_s"] for r in recs]}
+    emit(out)
+    return out
+
+
+def run_bigstep() -> dict:
+    """Phase bigstep: ``multiproc.run_bigstep`` over GANG_RANKS ranks,
+    ray DP and keyframe-sharded BA: BIGSTEP_CHUNKS 15-iteration mapping
+    chunks at the Replica operating point each; every loss finite, the
+    ranks' losses equal; chunk seconds and each rank's peak RSS."""
+    import numpy as np
+
+    from myslam_torch.parallel import multiproc
+
+    out = {"phase": "bigstep", "ranks": GANG_RANKS}
+    for mode in ("dp", "kf"):
+        recs = multiproc.launch(GANG_RANKS, mode=mode, loop="bigstep",
+                                frames=BIGSTEP_CHUNKS, device=DEVICE,
+                                seed=SEED, timeout=600)
+        for rec in recs:
+            losses = np.asarray(rec["losses"])
+            if (not np.isfinite(losses).all()
+                    or len(rec["chunk_s"]) != BIGSTEP_CHUNKS
+                    or not np.array_equal(losses,
+                                          np.asarray(recs[0]["losses"]))):
+                raise AssertionError(f"bigstep[{mode}]: losses {losses}")
+        out[mode] = {"chunk_s": [list(r["chunk_s"]) for r in recs],
+                     "rss_mb": [r["rss_mb"] for r in recs]}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2322,6 +2745,7 @@ def main(argv=None) -> int:
     cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
     cases = check_kernels(cfg, layouts(cfg))
+    banded_case = check_banded(cfg, layouts(cfg)["sdf"])
     mesh_case = check_mesh_chunk(cfg, layouts(cfg)["sdf"])
     slam, system = run_slam(cfg)
     emit(slam)
@@ -2331,12 +2755,13 @@ def main(argv=None) -> int:
     slam_est = system.estimates.copy()
     del system
     dp_recs = run_dp(slam, slam_est)
-    # Phases kf_schur, kf_schur_every and dp_again run beside
+    # Phases kf_schur, kf_schur_every, kf_dp and dp_again run beside
     # gang_resume: none of their times is a recorded number (phase dp's
-    # are, alone).
+    # are, alone, as are the pipeline's, map_shards' and bigstep's).
     kf = Background(run_kf_schur, slam)
     kf_every = Background(run_kf_schur, slam, "kf_schur_every",
                           KF_SCHUR_EVERY, KF_SCHUR_EVERY_ATE_CM)
+    kf_dp = Background(run_kf_dp)
     try:
         resume = run_gang_resume(dp_recs, Background(
             run_gang, "dp_again",
@@ -2344,7 +2769,11 @@ def main(argv=None) -> int:
     finally:
         kf.wait()
         kf_every.wait()
-    kf, kf_every = kf.join(), kf_every.join()
+        kf_dp.wait()
+    kf, kf_every, kf_dp = kf.join(), kf_every.join(), kf_dp.join()
+    pipeline = run_pipeline(slam, slam_est)
+    shards = run_map_shards()
+    bigstep = run_bigstep()
     bench = run_bench_scatter()
     run_bench_exact()
     tum = tum_config(None)
@@ -2468,7 +2897,33 @@ def main(argv=None) -> int:
     kernels[1].update({
         "max_abs_err": max(kernels[1]["max_abs_err"], schur_k2["max_abs_err"]),
         "ms_schur_p_grad_only": schur_k2["ms"],
-        "plain_ms_schur_p_grad_only": schur_k2["plain_ms"]})
+        "plain_ms_schur_p_grad_only": schur_k2["plain_ms"],
+        "bound_ms_schur_p_grad_only": schur_k2["bound_ms"]})
+    # K1 and K2 launches per rank in this slice's phases.
+    for k in kernels[:2]:
+        k.update({f"launches_{name}": [la[k["name"]] for la in rec["launches"]]
+                  for name, rec in (("pipeline", pipeline),
+                                    ("map_shards", shards),
+                                    ("kf_dp", kf_dp))})
+    # The banded K1 / K2 (map shards): band 0's record at the mapping SDF
+    # sample, both bands' ms, and their launches per rank in phase
+    # map_shards (rank 0's as ``launches``).
+    for name, key in (("plane_sample_fwd_banded", "fwd"),
+                      ("plane_sample_bwd_banded", "bwd")):
+        per = [b[key] for b in banded_case["per_band"]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "myslam_torch/csrc/plane_sample.cu",
+            "replaces": "myslam_tpu/parallel/plane_shard.py:214",
+            "launches": shards["launches"][0][name],
+            "max_abs_err": max(p["max_abs_err"] for p in per),
+            "ms": per[0]["ms"], "plain_ms": per[0]["plain_ms"],
+            "bound_ms": per[0]["bound_ms"], "bound_by": per[0]["bound_by"],
+            "library_ms": None, "ms_graph": per[0]["ms_graph"],
+            "ms_bands": [p["ms"] for p in per],
+            "ms_graph_bands": [p["ms_graph"] for p in per],
+            "bound_ms_bands": [p["bound_ms"] for p in per],
+            "launches_map_shards": [la[name] for la in shards["launches"]]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

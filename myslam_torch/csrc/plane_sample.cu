@@ -84,6 +84,16 @@
 // registers before their atomic, and atomics add in an order that
 // changes from run to run.  No global scratch memory, no
 // synchronisation; the launch is one kernel on the caller's stream.
+//
+// Banded K1 / K2 (plane_sample_fwd_banded, plane_sample_bwd_banded) are
+// the same walks over one map shard's band atlas (parallel/plane_shard.py,
+// the counterpart of myslam_tpu/parallel/plane_shard.py's owned-row
+// sample, which JAX runs as a plain XLA gather): the band table adds each
+// plane's (y_lo, band_h), a point whose cell row lies outside its plane's
+// band reads a zero row (forward) and scatters nothing (backward), and the
+// row index is the band's (RowBand in plane_common.cuh).  They are the
+// kernels' RowBand instantiations; the unbanded kernels are the NoBand
+// ones, the same code as before the band window.
 
 #include "plane_common.cuh"
 
@@ -139,17 +149,36 @@ __device__ __forceinline__ float warp_sum3(const float (&v)[3], int lane) {
 
 // K1: out[n, l*c4 + c] = sum over the level's 3 planes of
 //     quad[row, c] * fx(c) * fy(c), by fwd_walk.
-template <typename T, int NL>
-__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS(NL))
-plane_sample_fwd_kernel(const float* __restrict__ p_nor,
-                        const T* __restrict__ quad, float* __restrict__ out,
-                        int n, int c4, int run, PlaneTable t) {
+template <typename T, int NL, class Band>
+__device__ __forceinline__ void fwd_body(const float* __restrict__ p_nor,
+                                         const T* __restrict__ quad,
+                                         float* __restrict__ out, int n,
+                                         int c4, int run, const PlaneTable& t,
+                                         const Band& band) {
   __shared__ float4 coords[FWD_WARPS][FWD_TILE][3 * NL];
   const int warp = threadIdx.x >> 5;
   SmemTile<3 * NL> tile{coords[warp]};
   fwd_walk<T, NL>(GlobalRows<T>{quad, c4}, tile, p_nor, out, n, c4, run,
                   blockIdx.x * FWD_WARPS + warp, gridDim.x * FWD_WARPS,
-                  threadIdx.x & 31, t);
+                  threadIdx.x & 31, t, band);
+}
+
+template <typename T, int NL>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS(NL))
+plane_sample_fwd_kernel(const float* __restrict__ p_nor,
+                        const T* __restrict__ quad, float* __restrict__ out,
+                        int n, int c4, int run, PlaneTable t) {
+  fwd_body<T, NL>(p_nor, quad, out, n, c4, run, t, NoBand());
+}
+
+// Banded K1: the same walk over a band atlas (RowBand).
+template <typename T, int NL>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS(NL))
+plane_sample_fwd_banded_kernel(const float* __restrict__ p_nor,
+                               const T* __restrict__ quad,
+                               float* __restrict__ out, int n, int c4,
+                               int run, PlaneTable t, RowBand band) {
+  fwd_body<T, NL>(p_nor, quad, out, n, c4, run, t, band);
 }
 
 // K2: quad_grad[row, c] += gbar[n, l*c4 + c] * fx(c) * fy(c)  (if asked)
@@ -159,14 +188,18 @@ plane_sample_fwd_kernel(const float* __restrict__ p_nor,
 // (one pass for the loop's c4 = 128; later passes add to p_grad), in
 // tiles of BWD_TILE points whose plane coordinates it computes first,
 // one point per lane, into shared memory.
-template <typename T, int NL, bool QUAD_GRAD>
-__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_MIN_BLOCKS(NL))
-plane_sample_bwd_kernel(const float* __restrict__ gbar,
-                        const float* __restrict__ p_nor,
-                        const T* __restrict__ quad,
-                        float* __restrict__ quad_grad,
-                        float* __restrict__ p_grad, int n, int c4, int run,
-                        PlaneTable t) {
+//
+// Banded (RowBand): a plane's UNOWNED points hold a zero row, so they add
+// nothing to p_grad, and they accumulate nothing, so a flush never sees
+// their gbar.
+template <typename T, int NL, bool QUAD_GRAD, class Band>
+__device__ __forceinline__ void bwd_body(const float* __restrict__ gbar,
+                                         const float* __restrict__ p_nor,
+                                         const T* __restrict__ quad,
+                                         float* __restrict__ quad_grad,
+                                         float* __restrict__ p_grad, int n,
+                                         int c4, int run, const PlaneTable& t,
+                                         const Band& band) {
   constexpr int P = 3 * NL;
   // Per warp, per (point, plane) of a tile: row, wx, wy, in-range bits.
   __shared__ float4 coords[BWD_WARPS][BWD_TILE][P];
@@ -196,7 +229,7 @@ plane_sample_bwd_kernel(const float* __restrict__ gbar,
     load_gbar<NL>(gl, gbar + first * stride + c, c4, on);
     for (int tile = first; tile < end; tile += BWD_TILE) {
       const int tn = min(BWD_TILE, end - tile);
-      tile_coords<P>(coords[warp], p_nor, tile, tn, lane, t);
+      tile_coords<P>(coords[warp], p_nor, tile, tn, lane, t, band);
       for (int i = 0; i < tn; ++i) {
         const int pt = tile + i;
         // Rows first, so that every plane's row load is in flight at once.
@@ -213,7 +246,13 @@ plane_sample_bwd_kernel(const float* __restrict__ gbar,
               for (int j = 0; j < 4; ++j) acc[k][j] = 0.0f;
             }
             row[k] = r;
-            if (on) held[k] = Row4<T>::load(quad + (size_t)r * c4 + c);
+            if constexpr (Band::banded) {
+              if (on)
+                held[k] = r >= 0 ? Row4<T>::load(quad + (size_t)r * c4 + c)
+                                 : Row4<T>::zero();
+            } else {
+              if (on) held[k] = Row4<T>::load(quad + (size_t)r * c4 + c);
+            }
           }
         }
         float pg[3] = {0.0f, 0.0f, 0.0f};
@@ -226,9 +265,10 @@ plane_sample_bwd_kernel(const float* __restrict__ gbar,
           const float fx = 0.5f + (cd.y - 0.5f) * sx;
           const float fy = 0.5f + (cd.z - 0.5f) * sy;
           float ggl = 0.0f;  // sum_c quad[row, c] gbar[n, c] on this lane
+          const bool owned = !Band::banded || row[k] >= 0;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            if (QUAD_GRAD) acc[k][j] += gl[l][j] * (fx * fy);
+            if (QUAD_GRAD && owned) acc[k][j] += gl[l][j] * (fx * fy);
             ggl += g[j] * gl[l][j];
           }
           // Item 4: fold into the axes on each lane (sx, sy, fx, fy are
@@ -259,18 +299,53 @@ plane_sample_bwd_kernel(const float* __restrict__ gbar,
   }
 }
 
+template <typename T, int NL, bool QUAD_GRAD>
+__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_MIN_BLOCKS(NL))
+plane_sample_bwd_kernel(const float* __restrict__ gbar,
+                        const float* __restrict__ p_nor,
+                        const T* __restrict__ quad,
+                        float* __restrict__ quad_grad,
+                        float* __restrict__ p_grad, int n, int c4, int run,
+                        PlaneTable t) {
+  bwd_body<T, NL, QUAD_GRAD>(gbar, p_nor, quad, quad_grad, p_grad, n, c4,
+                             run, t, NoBand());
+}
+
+// Banded K2: the same walk over a band atlas (RowBand).
+template <typename T, int NL, bool QUAD_GRAD>
+__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_MIN_BLOCKS(NL))
+plane_sample_bwd_banded_kernel(const float* __restrict__ gbar,
+                               const float* __restrict__ p_nor,
+                               const T* __restrict__ quad,
+                               float* __restrict__ quad_grad,
+                               float* __restrict__ p_grad, int n, int c4,
+                               int run, PlaneTable t, RowBand band) {
+  bwd_body<T, NL, QUAD_GRAD>(gbar, p_nor, quad, quad_grad, p_grad, n, c4,
+                             run, t, band);
+}
+
+// The kernels' launches by level count: `band` null launches the
+// unbanded kernels, else the banded ones.
 template <typename T, int NL>
 static void launch_bwd(dim3 grid, cudaStream_t s, const float* gbar,
                        const float* p_nor, const T* quad, float* quad_grad,
                        float* p_grad, int n, int c4, int run,
-                       const PlaneTable& t) {
+                       const PlaneTable& t, const RowBand* band) {
   const dim3 block(BWD_WARPS * 32);
-  if (quad_grad != nullptr)
+  if (band != nullptr) {
+    if (quad_grad != nullptr)
+      plane_sample_bwd_banded_kernel<T, NL, true><<<grid, block, 0, s>>>(
+          gbar, p_nor, quad, quad_grad, p_grad, n, c4, run, t, *band);
+    else
+      plane_sample_bwd_banded_kernel<T, NL, false><<<grid, block, 0, s>>>(
+          gbar, p_nor, quad, nullptr, p_grad, n, c4, run, t, *band);
+  } else if (quad_grad != nullptr) {
     plane_sample_bwd_kernel<T, NL, true><<<grid, block, 0, s>>>(
         gbar, p_nor, quad, quad_grad, p_grad, n, c4, run, t);
-  else
+  } else {
     plane_sample_bwd_kernel<T, NL, false><<<grid, block, 0, s>>>(
         gbar, p_nor, quad, nullptr, p_grad, n, c4, run, t);
+  }
 }
 
 template <typename T>
@@ -278,90 +353,147 @@ static void launch_bwd_levels(int n_levels, dim3 grid, cudaStream_t s,
                               const float* gbar, const float* p_nor,
                               const void* quad, float* quad_grad,
                               float* p_grad, int n, int c4, int run,
-                              const PlaneTable& t) {
+                              const PlaneTable& t, const RowBand* band) {
   const T* q = (const T*)quad;
   switch (n_levels) {
     case 1: launch_bwd<T, 1>(grid, s, gbar, p_nor, q, quad_grad, p_grad, n,
-                             c4, run, t); break;
+                             c4, run, t, band); break;
     case 2: launch_bwd<T, 2>(grid, s, gbar, p_nor, q, quad_grad, p_grad, n,
-                             c4, run, t); break;
+                             c4, run, t, band); break;
     case 3: launch_bwd<T, 3>(grid, s, gbar, p_nor, q, quad_grad, p_grad, n,
-                             c4, run, t); break;
+                             c4, run, t, band); break;
     default: launch_bwd<T, 4>(grid, s, gbar, p_nor, q, quad_grad, p_grad,
-                              n, c4, run, t); break;
+                              n, c4, run, t, band); break;
   }
+}
+
+template <typename T, int NL>
+static void launch_fwd(dim3 grid, cudaStream_t s, const float* p_nor,
+                       const T* q, float* out, int n, int c4, int run,
+                       const PlaneTable& t, const RowBand* band) {
+  const dim3 block(FWD_WARPS * 32);
+  if (band != nullptr)
+    plane_sample_fwd_banded_kernel<T, NL><<<grid, block, 0, s>>>(
+        p_nor, q, out, n, c4, run, t, *band);
+  else
+    plane_sample_fwd_kernel<T, NL><<<grid, block, 0, s>>>(
+        p_nor, q, out, n, c4, run, t);
 }
 
 template <typename T>
 static void launch_fwd_levels(int n_levels, dim3 grid, cudaStream_t s,
                               const float* p_nor, const void* quad,
                               float* out, int n, int c4, int run,
-                              const PlaneTable& t) {
-  const dim3 block(FWD_WARPS * 32);
+                              const PlaneTable& t, const RowBand* band) {
   const T* q = (const T*)quad;
   switch (n_levels) {
-    case 1: plane_sample_fwd_kernel<T, 1><<<grid, block, 0, s>>>(
-        p_nor, q, out, n, c4, run, t); break;
-    case 2: plane_sample_fwd_kernel<T, 2><<<grid, block, 0, s>>>(
-        p_nor, q, out, n, c4, run, t); break;
-    case 3: plane_sample_fwd_kernel<T, 3><<<grid, block, 0, s>>>(
-        p_nor, q, out, n, c4, run, t); break;
-    default: plane_sample_fwd_kernel<T, 4><<<grid, block, 0, s>>>(
-        p_nor, q, out, n, c4, run, t); break;
+    case 1: launch_fwd<T, 1>(grid, s, p_nor, q, out, n, c4, run, t, band);
+      break;
+    case 2: launch_fwd<T, 2>(grid, s, p_nor, q, out, n, c4, run, t, band);
+      break;
+    case 3: launch_fwd<T, 3>(grid, s, p_nor, q, out, n, c4, run, t, band);
+      break;
+    default: launch_fwd<T, 4>(grid, s, p_nor, q, out, n, c4, run, t, band);
+      break;
   }
 }
 
 // Plain C interface (bound with ctypes).  `planes` is a host array of
-// (H, W, row offset, u-axis, v-axis) per plane.  Returns the launch's
-// cudaGetLastError() (0 on success); outputs are written on `stream`.
-// `run`, `warps` and `blocks` are the wrapper's launch plan: warp w of
-// the grid walks points [w*run, min((w+1)*run, n)); the plan must cover
-// every point with no empty block, and a run is at most one tile.
+// (H, W, row offset, u-axis, v-axis) per plane; `bands`, of the banded
+// entries, a host array of (y_lo, band_h) per plane, with the row offset
+// the band's in the band atlas.  Returns the launch's cudaGetLastError()
+// (0 on success); outputs are written on `stream`.  `run`, `warps` and
+// `blocks` are the wrapper's launch plan: warp w of the grid walks points
+// [w*run, min((w+1)*run, n)); the plan must cover every point with no
+// empty block, and a forward run is at most one tile.
+static int fwd_entry(const float* p_nor, const void* quad, int quad_bf16,
+                     float* out, int n, int c4, int n_levels,
+                     const int* planes, const int* bands, int run,
+                     int warps, int blocks, void* stream) {
+  PlaneTable t;
+  RowBand b;
+  const long long per_block = (long long)warps * run;
+  if (n <= 0 || c4 <= 0 || c4 % 16 != 0 ||
+      !fill_table(&t, planes, n_levels) ||
+      (bands != nullptr && !fill_band(&b, bands, n_levels)) ||
+      warps != FWD_WARPS || run <= 0 || run > FWD_TILE || blocks <= 0 ||
+      per_block * blocks < n || per_block * (blocks - 1) >= n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(blocks);
+  const RowBand* band = bands != nullptr ? &b : nullptr;
+  if (quad_bf16)
+    launch_fwd_levels<__nv_bfloat16>(n_levels, grid, s, p_nor, quad, out, n,
+                                     c4, run, t, band);
+  else
+    launch_fwd_levels<float>(n_levels, grid, s, p_nor, quad, out, n, c4, run,
+                             t, band);
+  return (int)cudaGetLastError();
+}
+
+static int bwd_entry(const float* gbar, const float* p_nor, const void* quad,
+                     int quad_bf16, float* quad_grad, float* p_grad, int n,
+                     int c4, int n_levels, const int* planes,
+                     const int* bands, int run, int warps, int blocks,
+                     void* stream) {
+  PlaneTable t;
+  RowBand b;
+  const long long per_block = (long long)warps * run;
+  if (n <= 0 || c4 <= 0 || c4 % 16 != 0 ||
+      !fill_table(&t, planes, n_levels) ||
+      (bands != nullptr && !fill_band(&b, bands, n_levels)) ||
+      warps != BWD_WARPS || run <= 0 || blocks <= 0 ||
+      per_block * blocks < n || per_block * (blocks - 1) >= n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(blocks);
+  const RowBand* band = bands != nullptr ? &b : nullptr;
+  if (quad_bf16)
+    launch_bwd_levels<__nv_bfloat16>(n_levels, grid, s, gbar, p_nor, quad,
+                                     quad_grad, p_grad, n, c4, run, t, band);
+  else
+    launch_bwd_levels<float>(n_levels, grid, s, gbar, p_nor, quad,
+                             quad_grad, p_grad, n, c4, run, t, band);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int plane_sample_fwd(const float* p_nor, const void* quad,
                                 int quad_bf16, float* out, int n, int c4,
                                 int n_levels, const int* planes, int run,
                                 int warps, int blocks, void* stream) {
-  PlaneTable t;
-  const long long per_block = (long long)warps * run;
-  if (n <= 0 || c4 <= 0 || c4 % 16 != 0 ||
-      !fill_table(&t, planes, n_levels) || warps != FWD_WARPS || run <= 0 ||
-      run > FWD_TILE || blocks <= 0 || per_block * blocks < n ||
-      per_block * (blocks - 1) >= n)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(blocks);
-  if (quad_bf16)
-    launch_fwd_levels<__nv_bfloat16>(n_levels, grid, s, p_nor, quad, out, n,
-                                     c4, run, t);
-  else
-    launch_fwd_levels<float>(n_levels, grid, s, p_nor, quad, out, n, c4, run,
-                             t);
-  return (int)cudaGetLastError();
+  return fwd_entry(p_nor, quad, quad_bf16, out, n, c4, n_levels, planes,
+                   nullptr, run, warps, blocks, stream);
 }
 
-// `run`, `warps` and `blocks` are the wrapper's launch plan: warp w of
-// the grid walks points [w*run, min((w+1)*run, n)); the plan must cover
-// every point with no empty block.
+extern "C" int plane_sample_fwd_banded(const float* p_nor, const void* quad,
+                                       int quad_bf16, float* out, int n,
+                                       int c4, int n_levels,
+                                       const int* planes, const int* bands,
+                                       int run, int warps, int blocks,
+                                       void* stream) {
+  if (bands == nullptr) return (int)cudaErrorInvalidValue;
+  return fwd_entry(p_nor, quad, quad_bf16, out, n, c4, n_levels, planes,
+                   bands, run, warps, blocks, stream);
+}
+
 extern "C" int plane_sample_bwd(const float* gbar, const float* p_nor,
                                 const void* quad, int quad_bf16,
                                 float* quad_grad, float* p_grad, int n,
                                 int c4, int n_levels, const int* planes,
                                 int run, int warps, int blocks,
                                 void* stream) {
-  PlaneTable t;
-  const long long per_block = (long long)warps * run;
-  if (n <= 0 || c4 <= 0 || c4 % 16 != 0 ||
-      !fill_table(&t, planes, n_levels) || warps != BWD_WARPS ||
-      run <= 0 || blocks <= 0 || per_block * blocks < n ||
-      per_block * (blocks - 1) >= n)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(blocks);
-  if (quad_bf16)
-    launch_bwd_levels<__nv_bfloat16>(n_levels, grid, s, gbar, p_nor, quad,
-                                     quad_grad, p_grad, n, c4, run, t);
-  else
-    launch_bwd_levels<float>(n_levels, grid, s, gbar, p_nor, quad,
-                             quad_grad, p_grad, n, c4, run, t);
-  return (int)cudaGetLastError();
+  return bwd_entry(gbar, p_nor, quad, quad_bf16, quad_grad, p_grad, n, c4,
+                   n_levels, planes, nullptr, run, warps, blocks, stream);
+}
+
+extern "C" int plane_sample_bwd_banded(const float* gbar, const float* p_nor,
+                                       const void* quad, int quad_bf16,
+                                       float* quad_grad, float* p_grad,
+                                       int n, int c4, int n_levels,
+                                       const int* planes, const int* bands,
+                                       int run, int warps, int blocks,
+                                       void* stream) {
+  if (bands == nullptr) return (int)cudaErrorInvalidValue;
+  return bwd_entry(gbar, p_nor, quad, quad_bf16, quad_grad, p_grad, n, c4,
+                   n_levels, planes, bands, run, warps, blocks, stream);
 }

@@ -86,6 +86,9 @@ class KeyframeStore:
                     f"store whose capacity ({capacity}) divides by {n}")
             self.local_capacity = self.capacity // n
             self.slot_offset = rank * self.local_capacity
+        # The ranks whose slots make the whole store (full_view's
+        # gather), None: every rank (``distributed.Group``).
+        self.gather_group = None
         self.cam = cam
         self.device = torch.device(device)
         self.mode = mode
@@ -156,15 +159,21 @@ class KeyframeStore:
         unsharded; for a sharded store an unsharded copy on rank 0, its
         imagery gathered from the ranks in one collective per buffer, and
         None on the other ranks, which allocate no copy (every rank must
-        call this at the same point)."""
+        call this at the same point).  With a ``gather_group`` (kf x dp:
+        the column holding each kf row once) its ranks gather."""
         if self.shard is None:
             return self
         from myslam_torch.parallel import distributed
 
-        parts = [distributed.gather_to_rank0(src, "store")
-                 if src is not None else None for src in self.imagery()]
-        if distributed.rank() != 0:
+        group = self.gather_group
+        if group is not None and not group.member:
             return None
+        with distributed.scope(group):
+            parts = [distributed.gather_to_rank0(src, "store")
+                     if src is not None else None
+                     for src in self.imagery()]
+            if distributed.rank() != 0:
+                return None
         full = KeyframeStore(self.capacity, self.cam, self.device,
                              mode=self.mode,
                              color_dtype=(self.colors.dtype if not

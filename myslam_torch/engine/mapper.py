@@ -156,14 +156,21 @@ def make_map_optimizer(cfg: dict, ms: MapState, poses, lr_factor: float):
 
 def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
                 importance: bool = True, packed: bool = False,
-                sharded: bool = False):
+                sharded: bool = False, queries_factory=None):
     """The per-iteration mapping loss and the optimizer factory.
 
     The loss runs _build_stages' geometry, render_core over the map's
     quads (packed here each iteration, at ``map_quad_dtype``), then
-    _build_stages' losses; ``packed`` and ``sharded`` as there."""
+    _build_stages' losses; ``packed`` and ``sharded`` as there.
+    ``queries_factory(ms) -> FieldQueries`` replaces the map backend the
+    loss renders against (the banded one of
+    ``parallel/sharded_engine.py``), as the JAX package's ``_build_core``
+    takes one."""
     quad_dtype = map_quad_dtype(cfg)
     geometry, losses = _build_stages(cfg, scene, cam, packed, sharded)
+    if queries_factory is None:
+        def queries_factory(ms):
+            return make_queries(ms, scene, quad_dtype=quad_dtype)
 
     def make_optimizer(ms: MapState, poses: torch.Tensor, lr_factor: float):
         return make_map_optimizer(cfg, ms, poses, lr_factor)
@@ -177,7 +184,7 @@ def _build_core(cfg: dict, scene: SceneGeometry, cam: Camera,
             kf_inv_q, draws)
         depth, color, sdf, z_vals = render_core(
             draws, scene, rays_o, rays_d, px_depth, importance,
-            make_queries(ms, scene, quad_dtype=quad_dtype))
+            queries_factory(ms))
         return losses(sdf, z_vals, depth, color, px_depth, px_color, inside)
 
     return loss_fn, make_optimizer
@@ -276,11 +283,12 @@ def make_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
 def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                       selector, w_max: int, scratch_slot: int,
                       importance: bool = True, packed: bool = False,
-                      sharded: bool = False):
+                      sharded: bool = False, queries_factory=None):
     """One mapped frame: scratch-imagery write, window selection, the
     iterations, masked pose write-back and keyframe admission, over a
     device store or (``packed``) a packed one; ``sharded``: ray data
-    parallelism over the ranks (the store replicated on each).
+    parallelism over the ranks (the store replicated on each);
+    ``queries_factory``: the map backend (``_build_core``).
 
     Returns map_frame(ms, store, est (n, 4, 4), color_u8 (H, W, 3),
     depth_u16 (H, W), inv_q, gt_c2w (4, 4), idx, draws, *, iters,
@@ -291,7 +299,7 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
     selector's, then each iteration's (``loss_fn``).
     """
     loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
-                                          packed, sharded)
+                                          packed, sharded, queries_factory)
 
     def map_frame(ms: MapState, store: KeyframeStore, est, color_u8,
                   depth_u16, inv_q: float, gt_c2w, idx: int, draws, *,

@@ -23,20 +23,41 @@ in-loop panels (``tracking/mapping.vis_freq``, ``vis_inside_freq``,
 each packet's uploads (``datasets.stage_packet``).
 
 The config's ``parallel`` section is read by the JAX package's rules
-(``parallel_mode``): one rank is one process and one device, and every
+(``parallel_plan``): one rank is one process and one device, and every
 rank of the process group (``parallel/distributed.py``) runs this same
-loop.  ``parallel.devices`` is ray data parallelism (the mapper's ray
-batch split over the ranks, one gradient all-reduce per iteration),
-``parallel.kf_shards`` keyframe-sharded BA (each rank holds its own
-keyframe slots' imagery; ``pose_solver`` adam or schur); under either,
-tracking splits its pixel batch over the ranks.  Rank 0 alone writes
-metrics.jsonl, the checkpoints, the meshes and the heartbeat; the
-panels are off; resume is decided by rank 0 and broadcast.  Everything
-else of the JAX package's ``parallel`` section raises.
+loop.  The modes:
+
+  * ``parallel.devices``: ray data parallelism (the mapper's ray batch
+    split over the ranks, one gradient all-reduce per iteration; tracking
+    splits its pixels too);
+  * ``parallel.kf_shards``: keyframe-sharded BA (each rank holds its own
+    keyframe slots' imagery; ``pose_solver`` adam or schur), tracking
+    replicated;
+  * ``kf_shards: K`` with ``devices: D``: both composed on K x D ranks
+    (rank r is kf row r // D, dp column r % D): the imagery sharded over
+    the kf rows, each row's rays split over its columns, every reduction
+    over all the ranks (``distributed_ba.make_kf_frame_mapper(dp=D)``);
+  * ``parallel.map_shards``: banded map shards (every atlas split in
+    row bands over the ranks, ``parallel/sharded_engine.py``): the
+    banded map is what mapping optimizes, the replicated map (one
+    all-gather of the bands per mapped frame) what tracking, meshes and
+    checkpoints read;
+  * ``parallel.pipeline``: the track||map pipeline
+    (``parallel/pipeline.py``), ``pipeline_track_devices`` tracking
+    ranks and ``pipeline_map_devices`` (0: the rest) mapping ranks; in a
+    process group of one rank, one process runs its schedule.
+
+Rank 0 alone writes metrics.jsonl, the checkpoints, the meshes and the
+heartbeat (under the pipeline the map role's lead writes the
+checkpoints, the meshes and the mapped frames' records); the panels are
+off; resume is decided by rank 0 and broadcast.  ``dp_impl: spmd``
+(with ``zero_opt``) raises, as do the combinations the JAX package
+refuses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -52,12 +73,13 @@ from myslam_torch.engine.camera import Camera
 from myslam_torch.engine.keyframes import KeyframeStore, \
     make_window_selector, store_mode
 from myslam_torch.engine.mapper import make_frame_mapper, \
-    make_window_frame_mapper
+    make_window_frame_mapper, map_quad_dtype
 from myslam_torch.engine.tracker import make_group_tracker
 from myslam_torch.models.config import get_model
 from myslam_torch.models.planes import compute_bound, init_map_state
 from myslam_torch.ops import cuda_sample
 from myslam_torch.parallel import distributed
+from myslam_torch.parallel import pipeline as pipe
 from myslam_torch.render.renderer import scene_from_cfg
 from myslam_torch.tools.cull_mesh import cull_mesh
 from myslam_torch.tools.eval_ate import evaluate_run
@@ -76,15 +98,19 @@ VIS_SEED_OFFSET = 7919
 NEVER = 10 ** 9
 
 
-def parallel_mode(cfg: dict, world: int) -> str | None:
+def parallel_plan(cfg: dict, world: int) -> dict:
     """The parallel mode of ``cfg["parallel"]`` in a process group of
-    ``world`` ranks: None, "dp" for ray data parallelism (``devices``)
-    or "kf" for keyframe-sharded BA (``kf_shards``); 0 means every
-    rank.  Raises ValueError, naming the mode, for what the port does
-    not run (``pipeline``, ``map_shards``, kf_shards x devices,
-    ``dp_impl: spmd``) and for a mode whose rank count is not the
-    process group's: one rank is one process and one device, so
-    ``devices: 2`` needs a group of 2."""
+    ``world`` ranks, by the JAX package's rules (0 means every rank):
+    {"mode": None, "dp", "kf", "kfdp", "map" or "pipeline"}, with "kf"
+    and "dp" (the grid) for "kfdp" and "track" and "map" (the roles'
+    ranks) for "pipeline".
+
+    Raises ValueError, naming the mode: for ``dp_impl: spmd``; for what
+    the JAX package refuses (the pipeline with any other mode,
+    map_shards with any other, the host-staged store with kf or map
+    sharding or the pipeline); and for a mode whose rank count is not
+    the process group's (one rank is one process and one device, so
+    ``devices: 2`` needs a group of 2, kf x dp K * D)."""
     par = cfg.get("parallel", {}) or {}
 
     def n(name):
@@ -93,32 +119,63 @@ def parallel_mode(cfg: dict, world: int) -> str | None:
 
     n_dev, map_shards, kf_shards = n("devices"), n("map_shards"), \
         n("kf_shards")
-    if bool(par.get("pipeline", False)):
-        raise ValueError("parallel.pipeline (the track||map pipeline) is "
-                         "not ported to myslam_torch")
-    if map_shards > 1:
-        raise ValueError("parallel.map_shards (banded map shards) is not "
-                         "ported to myslam_torch")
-    if n_dev > 1 and kf_shards > 1:
-        raise ValueError("parallel.kf_shards x parallel.devices (composed "
-                         "kf x dp) is not ported to myslam_torch")
+    pipeline = bool(par.get("pipeline", False))
     dp_impl = str(par.get("dp_impl", "shardmap")).lower()
     if dp_impl != "shardmap":
-        raise ValueError(f"parallel.dp_impl: {dp_impl} is not ported to "
-                         "myslam_torch (its ray DP is the shardmap one: one "
-                         "gradient all-reduce per iteration)")
-    mode, ranks = ((("dp", n_dev) if n_dev > 1 else ("kf", kf_shards))
-                   if max(n_dev, kf_shards) > 1 else (None, 1))
-    if ranks != world:
-        what = ("parallel.devices" if mode == "dp" else
-                "parallel.kf_shards" if mode == "kf" else
-                "a single-device config")
         raise ValueError(
-            f"{what} ({mode or 'no parallel mode'}, {ranks} rank(s)) needs "
-            f"a process group of {ranks} rank(s), one process and one "
-            f"device each; this process group has {world} (run_torch.py "
-            "--launch N starts one)")
-    return mode
+            f"parallel.dp_impl: {dp_impl} (the SPMD ray DP and its "
+            "zero_opt) is not ported to myslam_torch yet; its ray DP is "
+            "the shardmap one: one gradient all-reduce per iteration")
+    n_axes = sum(x > 1 for x in (n_dev, map_shards, kf_shards))
+    if pipeline and n_axes:
+        raise ValueError(
+            "parallel.pipeline is its own mode (it composes ray DP inside "
+            "each role: pipeline_track_devices / pipeline_map_devices); "
+            "don't combine it with devices, map_shards or kf_shards")
+    if n_axes > 1 and not (n_axes == 2 and map_shards <= 1):
+        raise ValueError(
+            "parallel.map_shards composes with nothing; the supported "
+            "combined mode is kf_shards x devices (keyframe-sharded BA "
+            "with ray DP inside each kf row)")
+    if store_mode(cfg.get("keyframe_device", "device")) == "host_staged" \
+            and (kf_shards > 1 or map_shards > 1 or pipeline):
+        raise ValueError(
+            "keyframe_device: host_staged composes with ray DP only; use "
+            "'packed' (what 'cpu' maps to) with kf or map sharding or the "
+            "pipeline")
+
+    def needs(what, ranks):
+        return ValueError(
+            f"{what} needs a process group of {ranks} rank(s), one process "
+            f"and one device each; this process group has {world} "
+            "(run_torch.py --launch N starts one)")
+
+    if pipeline:
+        n_t = int(par.get("pipeline_track_devices", 1))
+        n_m = int(par.get("pipeline_map_devices", 0))
+        if world == 1 and n_t == 1 and n_m in (0, 1):
+            return {"mode": "pipeline", "track": 1, "map": 1}
+        if n_t < 1 or (n_m or world - n_t) < 1 \
+                or n_t + (n_m or world - n_t) != world:
+            raise needs(f"parallel.pipeline ({n_t} tracking rank(s), "
+                        f"{n_m or 'the rest'} mapping)",
+                        max(n_t, 1) + max(n_m, 1))
+        return {"mode": "pipeline", "track": n_t,
+                "map": n_m or world - n_t}
+    if n_dev > 1 and kf_shards > 1:
+        if n_dev * kf_shards != world:
+            raise needs(f"parallel.kf_shards x parallel.devices "
+                        f"({kf_shards} x {n_dev})", kf_shards * n_dev)
+        return {"mode": "kfdp", "kf": kf_shards, "dp": n_dev}
+    mode, ranks, what = ((("dp", n_dev, "parallel.devices") if n_dev > 1
+                          else ("kf", kf_shards, "parallel.kf_shards")
+                          if kf_shards > 1
+                          else ("map", map_shards, "parallel.map_shards"))
+                         if n_axes else (None, 1, "a single-device config"))
+    if ranks != world:
+        raise needs(f"{what} ({mode or 'no parallel mode'}, {ranks} "
+                    "rank(s))", ranks)
+    return {"mode": mode}
 
 
 class SLAMSystem:
@@ -169,9 +226,22 @@ class SLAMSystem:
         self.n_proc = distributed.world()
         self.rank = distributed.rank()
         self.proc0 = self.rank == 0
-        self.parallel = parallel_mode(cfg, self.n_proc)
+        self.plan = parallel_plan(cfg, self.n_proc)
+        self.parallel = self.plan["mode"]
         self.pose_solver = str((cfg.get("parallel", {}) or {}).get(
             "pose_solver", "adam"))
+        # The pipeline's roles (parallel/pipeline.py); the map role's lead
+        # writes the checkpoints and meshes, into rank 0's output folder.
+        self.pipe = None
+        self.writer = self.proc0
+        if self.parallel == "pipeline":
+            self.pipe = pipe.PipelineLink(self.plan["track"],
+                                          self.plan["map"])
+            self.output = distributed.broadcast_object(self.output)
+            self.writer = self.pipe.local or (
+                distributed.global_rank() == self.pipe.map_lead)
+        self.metrics_writer = self.proc0 or (self.writer
+                                             and self.pipe is not None)
         m = cfg["mapping"]
         self.ckpt_freq = int(m["ckpt_freq"])
         self.mesh_freq = int(m["mesh_freq"])
@@ -213,11 +283,16 @@ class SLAMSystem:
         # 680x1200 and 480x640, 8 at ScanNet's 460x620 crop).  The window
         # selector draws over the capacity, so the pad keeps its draws.
         row_pad = 128 // math.gcd(self.cam.H * self.cam.W, 128)
-        if self.parallel == "kf":
-            # The slots split evenly over the ranks, as the JAX package
+        # Keyframe sharding: K kf rows (every rank under kf_shards; rank
+        # r // D of a K x D grid), each holding its own block of slots.
+        self.kf_rows = {"kf": self.n_proc, "kfdp": self.plan.get("kf")
+                        }.get(self.parallel, 1)
+        self.dp_cols = self.plan.get("dp", 1)
+        if self.kf_rows > 1:
+            # The slots split evenly over the kf rows, as the JAX package
             # pads its capacity to the kf mesh.
-            row_pad = row_pad * self.n_proc // math.gcd(row_pad,
-                                                        self.n_proc)
+            row_pad = row_pad * self.kf_rows // math.gcd(row_pad,
+                                                         self.kf_rows)
         capacity = -(-(n_keyframes + 2) // row_pad) * row_pad
         # keyframe_device picks the store: the float store, the packed
         # wire format on the device (``cpu``/``packed``), or host imagery
@@ -232,8 +307,13 @@ class SLAMSystem:
                 "parallel.kf_shards")
         self.store = KeyframeStore(
             capacity, self.cam, self.device, mode=mode,
-            shard=((self.rank, self.n_proc) if self.parallel == "kf"
-                   else None))
+            shard=((self.rank // self.dp_cols, self.kf_rows)
+                   if self.kf_rows > 1 else None))
+        if self.parallel == "kfdp":
+            # The dp columns of a kf row hold the same slots: the store's
+            # gathers go over column 0 alone.
+            self.store.gather_group = distributed.new_group(
+                range(0, self.n_proc, self.dp_cols))
         self.scratch_slot = self.store.capacity - 1
         self.w_max = self.window_size + 2  # picks + last two + current
         if self.store.host_mode:
@@ -251,7 +331,9 @@ class SLAMSystem:
         # from the same stream and makes the same pose, with no
         # collective.
         self.group_tracker = make_group_tracker(
-            cfg, self.scene, self.cam, sharded=self.parallel == "dp")
+            cfg, self.scene, self.cam,
+            sharded=self.parallel == "dp" or (
+                self.parallel == "pipeline" and self.plan["track"] > 1))
         self._selector = make_window_selector(
             self.cam, self.store.capacity, self.window_size, self.w_max,
             self.scratch_slot,
@@ -263,23 +345,44 @@ class SLAMSystem:
                 imp: make_window_frame_mapper(cfg, self.scene, self.cam,
                                               self.w_max, importance=imp)
                 for imp in (False, True)}
-        elif self.parallel == "kf":
+        elif self.kf_rows > 1:
             from myslam_torch.parallel.distributed_ba import \
                 make_kf_frame_mapper
             self._mappers = {
                 imp: make_kf_frame_mapper(
                     cfg, self.scene, self.cam, self._selector, self.w_max,
                     self.scratch_slot, importance=imp,
-                    pose_solver=self.pose_solver, packed=self.store.packed)
+                    pose_solver=self.pose_solver, packed=self.store.packed,
+                    dp=self.dp_cols)
+                for imp in (False, True)}
+        elif self.parallel == "map":
+            from myslam_torch.parallel.sharded_engine import \
+                ShardedMapGeometry
+            # The frame mapper over this rank's banded map (geom.shard;
+            # geom.unshard gives the replicated one back).
+            self.geom = ShardedMapGeometry(self.scene, self.n_proc,
+                                           self.rank, map_quad_dtype(cfg))
+            self._mappers = {
+                imp: make_frame_mapper(
+                    cfg, self.scene, self.cam, self._selector, self.w_max,
+                    self.scratch_slot, importance=imp,
+                    packed=self.store.packed,
+                    queries_factory=self.geom.queries_factory)
                 for imp in (False, True)}
         else:
             self._mappers = {
-                imp: make_frame_mapper(cfg, self.scene, self.cam,
-                                       self._selector, self.w_max,
-                                       self.scratch_slot, importance=imp,
-                                       packed=self.store.packed,
-                                       sharded=self.parallel == "dp")
+                imp: make_frame_mapper(
+                    cfg, self.scene, self.cam, self._selector, self.w_max,
+                    self.scratch_slot, importance=imp,
+                    packed=self.store.packed,
+                    sharded=self.parallel == "dp" or (
+                        self.parallel == "pipeline"
+                        and self.plan["map"] > 1))
                 for imp in (False, True)}
+        # Map shards: this rank's banded map, the one mapping optimizes,
+        # derived from the replicated map when missing (at the start and
+        # after a resume).
+        self._map_banded = None
         self._iters_first = int(m["iters_first"])
         self._iters = int(m["iters"])
         self._lr_first_factor = float(m["lr_first_factor"])
@@ -287,6 +390,11 @@ class SLAMSystem:
 
         self.est = torch.zeros((self.n_img, 4, 4), dtype=torch.float32,
                                device=self.device)
+        if self.pipe is not None:
+            # The track role's trajectory and map (``self.est`` is the
+            # map role's); the map role keeps the rows it received here.
+            self.est_track = torch.zeros_like(self.est)
+            self.track_map = pipe.copy_map(self.map_state)
         self.gt_poses = np.zeros((self.n_img, 4, 4), np.float32)
         self._track_buf: list = []
         self.frame_log: list[dict] = []
@@ -306,7 +414,9 @@ class SLAMSystem:
         # metrics.jsonl: records wait here, device scalars and all, and
         # are read back in one batch at a flush (every 200 records,
         # before each periodic checkpoint, after the drain).
-        self.metrics_path = os.path.join(self.output, "metrics.jsonl")
+        self.metrics_path = os.path.join(
+            self.output, "metrics.jsonl" if self.proc0
+            else "metrics_map.jsonl")
         self.metrics_flush_every = 200
         self._pending_metrics: list[dict] = []
         self._compile_logged = 0.0
@@ -396,21 +506,29 @@ class SLAMSystem:
     def _flush_track_buf(self, open_rec: dict | None = None) -> None:
         """Track the buffered frames of one group against the frozen map,
         then log their records, except ``open_rec``: the current frame's,
-        which its own iteration finishes and logs."""
+        which its own iteration finishes and logs.  Under the pipeline
+        the track role's map, trajectory and the group's own draws, on
+        the track role's ranks."""
         buf, self._track_buf = self._track_buf, []
         if not buf:
             return
         idx0 = buf[0][0]
+        ms, est, draws = self.map_state, self.est, self.draws
+        if self.pipe is not None:
+            ms, est = self.track_map, self.est_track
+            draws = TorchDraws(self.seed + pipe.TRACK_SEED_OFFSET + idx0,
+                               self.device)
 
         def stack(name, dtype=None):
             return torch.stack([self._to_dev(getattr(p, name), dtype)
                                 for _, p, _ in buf])
 
         def run():
-            return self.group_tracker(
-                self.map_state, self.est, idx0,
-                stack("px_i", torch.int64), stack("px_j", torch.int64),
-                stack("px_color"), stack("px_depth"), self.draws)
+            with self._role_scope(track=True):
+                return self.group_tracker(
+                    ms, est, idx0, stack("px_i", torch.int64),
+                    stack("px_j", torch.int64), stack("px_color"),
+                    stack("px_depth"), draws)
 
         (_, loss_first, loss_best, iter_poses), host_ms, ms = self._timed(
             run)
@@ -441,6 +559,19 @@ class SLAMSystem:
                 return self._map_frame_host(mapper, idx, pkt, iters,
                                             lr_factor, joint_opt, admit,
                                             vis)
+            if self.parallel == "map":
+                # The banded map is what mapping optimizes; the
+                # replicated one, all-gathered after the frame, what
+                # everything else reads.
+                banded = self._mapper_state()
+                losses = mapper(
+                    banded, self.store, self.est,
+                    self._to_dev(pkt.color_u8), self._to_dev(pkt.depth_u16),
+                    pkt.depth_inv_q, self._to_dev(pkt.gt_c2w), idx,
+                    self.draws, iters=iters, lr_factor=lr_factor,
+                    joint_opt=joint_opt, admit=admit, **vis)
+                self.geom.unshard(banded, into=self.map_state)
+                return losses
             return mapper(
                 self.map_state, self.store, self.est,
                 self._to_dev(pkt.color_u8), self._to_dev(pkt.depth_u16),
@@ -458,6 +589,22 @@ class SLAMSystem:
         rec["map_loss_first"] = losses[0]
         rec["map_loss_last"] = losses[-1]
         rec["map_loss"] = losses[-1]
+
+    def _role_scope(self, track: bool):
+        """The pipeline role's group as the current one on its ranks (a
+        no-op elsewhere and for the other role's ranks)."""
+        link = self.pipe
+        if link is None or link.local or (link.is_track != track):
+            return contextlib.nullcontext()
+        return distributed.scope(link.track_group if track
+                                 else link.map_group)
+
+    def _mapper_state(self):
+        """This rank's banded map under map shards (derived from the
+        replicated map when missing)."""
+        if self._map_banded is None:
+            self._map_banded = self.geom.shard(self.map_state)
+        return self._map_banded
 
     def _select_host(self, idx: int, joint_opt: bool):
         """Window selection as its own step, for the host-staged store:
@@ -533,7 +680,7 @@ class SLAMSystem:
             for (rec, k), v in zip(keys, values):
                 rec[k] = v
         lines += pending
-        if lines and self.proc0:
+        if lines and self.metrics_writer:
             with open(self.metrics_path, "a") as f:
                 f.writelines(json.dumps(r) + "\n" for r in lines)
 
@@ -541,8 +688,8 @@ class SLAMSystem:
         """Keep of metrics.jsonl only the frames before ``start_idx`` (a
         resumed run logs the rest again; a fresh one starts empty), so
         that after a restart every frame is in the file once.  Rank 0's
-        file."""
-        if not self.proc0:
+        file (and the pipeline's map lead's)."""
+        if not self.metrics_writer:
             return
         kept = []
         if start_idx > 0 and os.path.exists(self.metrics_path):
@@ -621,8 +768,24 @@ class SLAMSystem:
             self.finalize()
 
     def run_loop(self, start_idx: int = 0) -> None:
-        """Track and map every frame of the dataset from ``start_idx``."""
+        """Track and map every frame of the dataset from ``start_idx``.
+        Under the pipeline each rank plays its roles (both in one
+        process): the track role tracks, the map role maps, and they
+        meet at the mapped frames (``_map_boundary``); the map role's
+        trajectory becomes every rank's at the end."""
+        link = self.pipe
+        track_role = link is None or link.is_track
+        map_role = link is None or link.is_map
+        # The trajectory tracking writes (the track role's own under the
+        # pipeline).
+        track_est = self.est if link is None else self.est_track
         self._reset_metrics(start_idx)
+        bounds = pipe.boundaries(start_idx, self.n_img, self.every_frame)
+        bound_set = set(bounds)
+        if link is not None:
+            link.expect_snapshots(max(len(bounds) - 1, 0),
+                                  pipe.snapshot_numel(self.map_state))
+        prev = start_idx - 1
         stage = self.device if self.device.type == "cuda" else None
         for idx, pkt in PacketPrefetcher(
                 self.dataset, range(start_idx, self.n_img),
@@ -635,37 +798,82 @@ class SLAMSystem:
             rec = {"frame": idx}
             self.frame_log.append(rec)
             deferred = False
-            if idx == 0 or self.gt_camera:
-                if not np.isfinite(pkt.gt_c2w).all():
-                    raise ValueError(f"frame {idx}: the ground-truth pose "
-                                     "the run starts from is not finite")
-                self.est[idx] = self._to_dev(pkt.gt_c2w)
-            else:
-                self._track_buf.append((idx, pkt, rec))
-                deferred = True
-            mapped = idx % self.every_frame == 0 or idx == self.n_img - 1
+            if track_role:
+                if idx == 0 or self.gt_camera:
+                    if not np.isfinite(pkt.gt_c2w).all():
+                        raise ValueError(
+                            f"frame {idx}: the ground-truth pose the run "
+                            "starts from is not finite")
+                    track_est[idx] = self._to_dev(pkt.gt_c2w)
+                else:
+                    self._track_buf.append((idx, pkt, rec))
+                    deferred = True
+            mapped = idx in bound_set
             if mapped:
-                # The group's poses must be in the trajectory before the
-                # mapping window is assembled.
-                self._flush_track_buf(open_rec=rec)
-                deferred = False
-                self._map_frame(idx, pkt, rec)
-                if self.on_map_done is not None:
-                    self.on_map_done(self, idx)
+                if track_role:
+                    # The group's poses must be in the trajectory before
+                    # the mapping window is assembled.
+                    self._flush_track_buf(open_rec=rec)
+                    deferred = False
+                self._map_boundary(idx, pkt, rec, prev, idx == bounds[-1])
+                prev = idx
             if idx == self.sync_after_frame:
-                self._flush_track_buf(open_rec=rec)
-                deferred = False
+                if track_role:
+                    self._flush_track_buf(open_rec=rec)
+                    deferred = False
                 self._sync()
             self.frame_times.append(time.perf_counter() - t_frame)
             rec["frame_ms"] = self.frame_times[-1] * 1e3
-            if not deferred:
+            # Under the pipeline the map role's ranks log only the mapped
+            # frames.
+            if not deferred and (track_role or mapped):
                 self._log_metrics(rec)
-            if mapped:
-                self._post_map(idx)
+            if mapped and map_role:
+                with self._role_scope(track=False):
+                    self._post_map(idx)
         self._flush_track_buf()
+        if link is not None:
+            link.close()
+            if not link.local:
+                # The map role's trajectory, with joint BA's refinements,
+                # is the run's.
+                with torch.no_grad():
+                    distributed.broadcast_(self.est, link.map_lead, "poses")
         self._sync()
         self.drain_wall = time.perf_counter()
         self._flush_metrics()
+
+    def _map_boundary(self, idx: int, pkt, rec: dict, prev: int,
+                      last: bool) -> None:
+        """Mapped frame ``idx``, the previous one ``prev``.  Under the
+        pipeline (parallel/pipeline.py) the track role sends the poses of
+        frames prev+1..idx; the map role writes them into its trajectory,
+        sends the snapshot for the next group (its map before this
+        frame's mapping; after it at frame 0) and maps; then the track
+        role takes that snapshot (none after the ``last`` one)."""
+        link = self.pipe
+        if link is None:
+            self._map_frame(idx, pkt, rec)
+            if self.on_map_done is not None:
+                self.on_map_done(self, idx)
+            return
+        if link.is_track:
+            link.send_poses(self.est_track[prev + 1:idx + 1])
+        if link.is_map:
+            with self._role_scope(track=False):
+                rows = link.recv_poses(idx - prev, self.device)
+                with torch.no_grad():
+                    self.est[prev + 1:idx + 1] = rows
+                    self.est_track[prev + 1:idx + 1] = rows
+                if not last and idx != 0:
+                    link.post_snapshot(self.map_state)
+                self._map_frame(idx, pkt, rec)
+                if not last and idx == 0:
+                    link.post_snapshot(self.map_state)
+                if self.on_map_done is not None:
+                    self.on_map_done(self, idx)
+        if link.is_track and not last:
+            link.take_snapshot(self.track_map)
 
     def resume(self, ckpt_path: str | None = None) -> int:
         """Restore the given checkpoint, or the newest one under
@@ -681,6 +889,17 @@ class SLAMSystem:
         if path is None:
             return 0
         start = load_checkpoint(path, self)
+        # Map shards: the banded view is derived again from the map.
+        self._map_banded = None
+        if self.pipe is not None:
+            # The track role goes on from its own trajectory rows and the
+            # map snapshot it held at the checkpoint's frame.
+            with np.load(path) as data:
+                track_est = data["pipeline_track_est"]
+                snapshot = data["pipeline_snapshot"]
+            with torch.no_grad():
+                self.est_track.copy_(torch.from_numpy(track_est))
+            pipe.unpack_map(torch.from_numpy(snapshot), self.track_map)
         if self.verbose:
             print(f"Resumed from {path} at frame {start}")
         return start
@@ -696,9 +915,9 @@ class SLAMSystem:
         [0, upto) at their estimated poses; returns the culled copy.
         The two steps' seconds go into ``seconds`` (``mesh``, ``cull``).
         Rank 0 meshes (a sharded store's imagery gathered first, by every
-        rank); the others return None."""
+        rank; the pipeline's map lead), the others return None."""
         store = self.store.full_view()
-        if not self.proc0:
+        if not self.writer:
             return None
         os.makedirs(os.path.dirname(path), exist_ok=True)
         t0 = time.perf_counter()
@@ -728,18 +947,25 @@ class SLAMSystem:
         ckpt = None
         last = self.n_img - 1
         self._touch_heartbeat(last)
-        t0 = time.perf_counter()
-        if checkpoint and self.n_img > 0:
-            ckpt = save_checkpoint(
-                os.path.join(self.output, "ckpts", f"{last:05d}.npz"),
-                self, last)
-        self.finalize_seconds = {"checkpoint": time.perf_counter() - t0}
-        self._touch_heartbeat(last)
-        if mesh:
-            self.final_mesh = self._extract_and_cull_mesh(
-                os.path.join(self.output, "mesh", self.mesh_name),
-                upto=self.n_img, seconds=self.finalize_seconds)
+        # Under the pipeline the map role writes both (in its group), and
+        # every rank learns the mesh's path.
+        role = self.pipe is None or self.pipe.is_map
+        with self._role_scope(track=False):
+            t0 = time.perf_counter()
+            if checkpoint and self.n_img > 0 and role:
+                ckpt = save_checkpoint(
+                    os.path.join(self.output, "ckpts", f"{last:05d}.npz"),
+                    self, last)
+            self.finalize_seconds = {"checkpoint": time.perf_counter() - t0}
             self._touch_heartbeat(last)
+            if mesh and role:
+                self.final_mesh = self._extract_and_cull_mesh(
+                    os.path.join(self.output, "mesh", self.mesh_name),
+                    upto=self.n_img, seconds=self.finalize_seconds)
+                self._touch_heartbeat(last)
+        if self.pipe is not None and mesh:
+            self.final_mesh = distributed.broadcast_object(
+                self.final_mesh, src=self.pipe.map_lead)
         self._flush_metrics()
         return ckpt
 

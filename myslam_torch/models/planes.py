@@ -46,6 +46,37 @@ class PlaneLayout:
         return out
 
 
+@dataclass(frozen=True)
+class BandLayout:
+    """One map shard's band of every plane of a layout
+    (``parallel/plane_shard.py``): plane k's rows [y_lo[k], y_lo[k] +
+    band_h[k]) as a band atlas of ``total_rows`` rows, plane k's band at
+    row ``local_off[k]``.  ``shapes`` are the whole planes'."""
+
+    shapes: tuple
+    local_off: tuple
+    y_lo: tuple
+    band_h: tuple
+    total_rows: int
+    c_dim: int
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.shapes)
+
+    def planes(self):
+        """Per-plane (level, orientation, u-axis, v-axis, H, W, band
+        offset, y_lo, band_h) tuples in atlas order."""
+        out = []
+        for lvl in range(self.n_levels):
+            for ori, (au, av) in enumerate(ORIENTATIONS):
+                k = 3 * lvl + ori
+                H, W = self.shapes[lvl][ori]
+                out.append((lvl, ori, au, av, H, W, self.local_off[k],
+                            self.y_lo[k], self.band_h[k]))
+        return out
+
+
 def make_layout(bound, resolutions, c_dim: int) -> PlaneLayout:
     """PlaneLayout from the scene bound (3, 2) and per-level resolutions
     in meters; grid sizes truncate the axis length / resolution."""

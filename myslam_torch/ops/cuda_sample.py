@@ -9,7 +9,11 @@ then linked) and bound with ctypes.  ``plane_sample.cu`` holds K1, the
 Hopper counterpart of ``myslam_tpu/ops/pallas_sample.py``'s B1/B3
 forward, and K2, that of the hand-written VJP
 ``myslam_tpu/ops/plane_sample.py::_sample_fused_bwd``;
-``plane_sample_smem.cu`` holds K3 (``ops/smem_sample.py``).
+``plane_sample_smem.cu`` holds K3 (``ops/smem_sample.py``).  K1 and K2
+also come banded (``plane_sample_fwd_banded``, ``plane_sample_bwd_banded``):
+the same walks over one map shard's band atlas (a ``BandLayout``,
+``parallel/plane_shard.py``), where a point outside a plane's band reads
+nothing and scatters nothing.
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version below, a CUDA tensor launches the kernel or raises.
@@ -30,7 +34,7 @@ import time
 
 import torch
 
-from myslam_torch.models.planes import PlaneLayout
+from myslam_torch.models.planes import BandLayout, PlaneLayout
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,7 +44,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
 
 LAUNCHES = {"plane_sample_fwd": 0, "plane_sample_bwd": 0,
-            "plane_sample_fwd_smem": 0}
+            "plane_sample_fwd_smem": 0, "plane_sample_fwd_banded": 0,
+            "plane_sample_bwd_banded": 0}
 
 # K1's launch: each warp walks one run of FWD_RUN consecutive points (at
 # most a tile of 32), loading a plane's row only where it differs from the
@@ -158,6 +163,74 @@ def plane_sample_bwd_ref(gbar: torch.Tensor, quad: torch.Tensor,
     return quad_grad, torch.stack(pg, dim=-1)
 
 
+def band_coords(p_nor: torch.Tensor, au: int, av: int, H: int, W: int,
+                off: int, y_lo: int, band_h: int, rows: int):
+    """plane_coords on one plane's band: the band atlas row of each
+    point's cell (clamped into the atlas where the point is not owned),
+    whether its cell row lies in [y_lo, y_lo + band_h), the fractions and
+    the in-range masks (the index math of the JAX package's
+    ``sample_local``)."""
+    cell, wx, wy, in_x, in_y = plane_coords(p_nor, au, av, H, W)
+    yi = torch.div(cell, W, rounding_mode="floor")
+    owned = (yi >= y_lo) & (yi < y_lo + band_h)
+    row = torch.clamp(off + (yi - y_lo) * W + (cell - yi * W), 0, rows - 1)
+    return row, owned, wx, wy, in_x, in_y
+
+
+def plane_sample_fwd_banded_ref(quad: torch.Tensor, band: BandLayout,
+                                p_nor: torch.Tensor) -> torch.Tensor:
+    """The forward over a band atlas (``band.total_rows`` rows), (N,
+    L*4C) float32: each plane's term where the point's cell row is in
+    the band, zero elsewhere.  Summed over the shards it is the
+    unbanded forward."""
+    sx, sy = lane_signs(band.c_dim, quad.device)
+    reds = []
+    for lvl, ori, au, av, H, W, off, y_lo, bh in band.planes():
+        row, owned, wx, wy, _, _ = band_coords(p_nor, au, av, H, W, off,
+                                               y_lo, bh, band.total_rows)
+        g = quad.index_select(0, row).to(torch.float32)
+        g = torch.where(owned[:, None], g, torch.zeros_like(g))
+        w = (0.5 + (wx[:, None] - 0.5) * sx) * (0.5 + (wy[:, None] - 0.5)
+                                                * sy)
+        term = g * w
+        if ori == 0:
+            reds.append(term)
+        else:
+            reds[lvl] = reds[lvl] + term
+    return torch.cat(reds, dim=-1)
+
+
+def plane_sample_bwd_banded_ref(gbar: torch.Tensor, quad: torch.Tensor,
+                                band: BandLayout, p_nor: torch.Tensor,
+                                need_quad_grad: bool = True):
+    """Backward of plane_sample_fwd_banded_ref: (quad_grad (band rows,
+    4C) f32 or None, p_grad (N, 3) f32), the owned points' terms
+    alone."""
+    n = gbar.shape[0]
+    C4 = 4 * band.c_dim
+    sx, sy = lane_signs(band.c_dim, quad.device)
+    quad_grad = (torch.zeros((band.total_rows, C4), dtype=torch.float32,
+                             device=quad.device)
+                 if need_quad_grad else None)
+    pg = [torch.zeros((n,), dtype=torch.float32, device=quad.device)
+          for _ in range(3)]
+    for lvl, ori, au, av, H, W, off, y_lo, bh in band.planes():
+        row, owned, wx, wy, in_x, in_y = band_coords(
+            p_nor, au, av, H, W, off, y_lo, bh, band.total_rows)
+        gl = gbar[:, lvl * C4:(lvl + 1) * C4]
+        gl = torch.where(owned[:, None], gl, torch.zeros_like(gl))
+        fx = 0.5 + (wx[:, None] - 0.5) * sx
+        fy = 0.5 + (wy[:, None] - 0.5) * sy
+        if need_quad_grad:
+            quad_grad.index_add_(0, row[owned], (gl * (fx * fy))[owned])
+        ggl = quad.index_select(0, row).to(torch.float32) * gl
+        dwx = (ggl * (sx * fy)).sum(-1)
+        dwy = (ggl * (sy * fx)).sum(-1)
+        pg[au] = pg[au] + dwx * in_x * (0.5 * (W - 1.0))
+        pg[av] = pg[av] + dwy * in_y * (0.5 * (H - 1.0))
+    return quad_grad, torch.stack(pg, dim=-1)
+
+
 # -- the CUDA library ----------------------------------------------------
 
 def _nvcc() -> str:
@@ -240,6 +313,13 @@ def load():
         lib.plane_sample_fwd_smem.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp,
                                               ci, ci, ci, ci, vp, vp]
         lib.plane_sample_fwd_smem.restype = ci
+        lib.plane_sample_fwd_banded.argtypes = [vp, vp, ci, vp, ci, ci, ci,
+                                                vp, vp, ci, ci, ci, vp]
+        lib.plane_sample_fwd_banded.restype = ci
+        lib.plane_sample_bwd_banded.argtypes = [vp, vp, vp, ci, vp, vp, ci,
+                                                ci, ci, vp, vp, ci, ci, ci,
+                                                vp]
+        lib.plane_sample_bwd_banded.restype = ci
         _lib = lib
     return _lib
 
@@ -255,6 +335,19 @@ def _plane_table(layout: PlaneLayout):
             vals += [H, W, off, au, av]
         _table_cache[layout] = (ctypes.c_int * len(vals))(*vals)
     return _table_cache[layout]
+
+
+def _band_tables(band: BandLayout):
+    """A band layout's plane table (H, W, band offset, u-axis, v-axis)
+    and band table (y_lo, band_h) per plane, as host int arrays."""
+    if band not in _table_cache:
+        planes, bands = [], []
+        for _, _, au, av, H, W, off, y_lo, bh in band.planes():
+            planes += [H, W, off, au, av]
+            bands += [y_lo, bh]
+        _table_cache[band] = ((ctypes.c_int * len(planes))(*planes),
+                              (ctypes.c_int * len(bands))(*bands))
+    return _table_cache[band]
 
 
 def _check(t: torch.Tensor, name: str, dtypes, shape, device):
@@ -362,4 +455,70 @@ def plane_sample_bwd(gbar: torch.Tensor, quad: torch.Tensor,
         blocks, torch.cuda.current_stream(p_nor.device).cuda_stream)
     _raise_on(err, "plane_sample_bwd")
     LAUNCHES["plane_sample_bwd"] += 1
+    return quad_grad, p_grad
+
+
+def plane_sample_fwd_banded(quad: torch.Tensor, band: BandLayout,
+                            p_nor: torch.Tensor) -> torch.Tensor:
+    """The forward over one shard's band atlas, (N, L*4C) float32: the
+    owned points' terms (``plane_sample_fwd_banded_ref``).  CPU tensors:
+    the plain version; CUDA tensors: banded kernel K1 (the same launch
+    plan as K1)."""
+    if p_nor.device.type == "cpu" and quad.device.type == "cpu":
+        return plane_sample_fwd_banded_ref(quad, band, p_nor)
+    _check_common(quad, band, p_nor)
+    n = p_nor.shape[0]
+    C4 = 4 * band.c_dim
+    out = torch.empty((n, band.n_levels * C4), dtype=torch.float32,
+                      device=p_nor.device)
+    if n == 0:
+        return out
+    lib = load()
+    planes, bands = _band_tables(band)
+    run, warps, blocks = fwd_launch_plan(n)
+    err = lib.plane_sample_fwd_banded(
+        p_nor.data_ptr(), quad.data_ptr(), int(quad.dtype == torch.bfloat16),
+        out.data_ptr(), n, C4, band.n_levels,
+        ctypes.cast(planes, ctypes.c_void_p),
+        ctypes.cast(bands, ctypes.c_void_p), run, warps, blocks,
+        torch.cuda.current_stream(p_nor.device).cuda_stream)
+    _raise_on(err, "plane_sample_fwd_banded")
+    LAUNCHES["plane_sample_fwd_banded"] += 1
+    return out
+
+
+def plane_sample_bwd_banded(gbar: torch.Tensor, quad: torch.Tensor,
+                            band: BandLayout, p_nor: torch.Tensor,
+                            need_quad_grad: bool = True):
+    """Backward over one shard's band atlas: (quad_grad (band rows, 4C)
+    f32 or None, p_grad (N, 3) f32, this shard's part of the coordinate
+    gradient).  CPU tensors: the plain version; CUDA tensors: banded
+    kernel K2 (the same launch plan as K2)."""
+    if p_nor.device.type == "cpu" and quad.device.type == "cpu":
+        return plane_sample_bwd_banded_ref(gbar, quad, band, p_nor,
+                                           need_quad_grad)
+    _check_common(quad, band, p_nor)
+    n = p_nor.shape[0]
+    C4 = 4 * band.c_dim
+    _check(gbar, "gbar", (torch.float32,), (n, band.n_levels * C4),
+           p_nor.device)
+    quad_grad = (torch.zeros((band.total_rows, C4), dtype=torch.float32,
+                             device=p_nor.device)
+                 if need_quad_grad else None)
+    p_grad = torch.empty((n, 3), dtype=torch.float32, device=p_nor.device)
+    if n == 0:
+        return quad_grad, p_grad
+    lib = load()
+    planes, bands = _band_tables(band)
+    run, warps, blocks = bwd_launch_plan(n)
+    err = lib.plane_sample_bwd_banded(
+        gbar.data_ptr(), p_nor.data_ptr(), quad.data_ptr(),
+        int(quad.dtype == torch.bfloat16),
+        quad_grad.data_ptr() if need_quad_grad else None,
+        p_grad.data_ptr(), n, C4, band.n_levels,
+        ctypes.cast(planes, ctypes.c_void_p),
+        ctypes.cast(bands, ctypes.c_void_p), run, warps, blocks,
+        torch.cuda.current_stream(p_nor.device).cuda_stream)
+    _raise_on(err, "plane_sample_bwd_banded")
+    LAUNCHES["plane_sample_bwd_banded"] += 1
     return quad_grad, p_grad

@@ -21,6 +21,8 @@ Two stages, as in ``myslam_tpu.ops.plane_sample``:
 
 ``SampleFused`` is the autograd Function: kernels K1/K2 on CUDA tensors,
 the plain versions on CPU tensors (``ops/cuda_sample.py``).
+``SampleBanded`` is its counterpart over one map shard's band atlas
+(``parallel/plane_shard.py``): banded K1/K2, this shard's terms alone.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from myslam_torch.models.planes import PlaneLayout
+from myslam_torch.models.planes import BandLayout, PlaneLayout
 from myslam_torch.ops import cuda_sample
 
 # The plain forward, under the name the renderer's tests use.
@@ -92,3 +94,35 @@ def sample_fused(quad: torch.Tensor, layout: PlaneLayout,
     """Weighted, orientation-summed corner features (N, L*4C) of the quad
     atlas at normalized points p_nor (N, 3)."""
     return SampleFused.apply(quad, p_nor.contiguous(), layout)
+
+
+class SampleBanded(torch.autograd.Function):
+    """The sample over one shard's band atlas with a hand-written
+    backward: banded K1 / K2 (CUDA) or their plain versions (CPU).  The
+    output and the coordinate gradient are this shard's parts (points
+    outside a plane's band add nothing); the quad gradient has the band
+    atlas's rows and is rounded to the quad's dtype, as SampleFused's."""
+
+    @staticmethod
+    def forward(ctx, quad, p_nor, band):
+        ctx.band = band
+        ctx.save_for_backward(quad, p_nor)
+        return cuda_sample.plane_sample_fwd_banded(quad, band, p_nor)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        quad, p_nor = ctx.saved_tensors
+        quad_grad, p_grad = cuda_sample.plane_sample_bwd_banded(
+            gbar.contiguous(), quad, ctx.band, p_nor,
+            need_quad_grad=ctx.needs_input_grad[0])
+        if quad_grad is not None:
+            quad_grad = quad_grad.to(quad.dtype)
+        return (quad_grad, p_grad if ctx.needs_input_grad[1] else None,
+                None)
+
+
+def sample_banded(quad: torch.Tensor, band: BandLayout,
+                  p_nor: torch.Tensor) -> torch.Tensor:
+    """This shard's part (N, L*4C) of the sample of the band quad atlas
+    ``quad`` at normalized points p_nor (N, 3)."""
+    return SampleBanded.apply(quad, p_nor.contiguous(), band)

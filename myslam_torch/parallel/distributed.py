@@ -15,6 +15,14 @@ back inside the call, so no rank stages them itself.  Every process group
 is made with an explicit timeout (``TIMEOUT_S``), so a rank that waits on
 a dead peer fails instead of hanging.
 
+Subgroups (``new_group``: the pipeline's two roles, the kf rows and dp
+columns of a (K, D) grid, a store's gather ranks) are made on every rank
+in the same order.  ``scope(group)`` makes a group the current one:
+inside it ``rank()``, ``world()`` and every collective below refer to
+that group, so a mapper or tracker written for "the ranks" runs over a
+role's ranks unchanged; outside any scope they refer to the whole
+process group.  ``global_rank()`` is the rank in the whole group.
+
 Every collective goes through the functions below, which count its calls,
 bytes and seconds by kind in ``COUNTS`` (``reset_counts``): ``grad`` for
 the one flat gradient all-reduce per mapping step, ``loss`` for the
@@ -23,12 +31,23 @@ mapping losses' masked (sum, count) pairs, ``track_median``,
 losses and pose gradient, ``schur`` for the reduced pose system,
 ``store`` for keyframe imagery gathered to rank 0 for a checkpoint or
 a mesh, ``object`` for small host values (the resume decision),
-``barrier``.  Seconds are host seconds from the device's last queued
-work to the call's return.
+``barrier``; for banded map shards ``halo`` (a band's first rows sent to
+the rank above, and their gradient sent back), ``features`` (the
+all-reduce of each sample call's partial features), ``coord_grad`` (the
+all-reduce of the sample's coordinate gradient) and ``bands`` (the
+all-gather of the bands after a mapped frame); for the pipeline
+``poses`` (a group's tracked poses, track role to map role) and
+``snapshot`` (the map, map role to track role).  Seconds are host
+seconds from the device's last queued work to the call's return; for a
+point-to-point transfer, the seconds its ``wait`` blocked.
+
+gloo, the backend of ranks that share a card, has no ``reduce_scatter``:
+nothing here needs one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import time
 
@@ -39,6 +58,9 @@ import torch.distributed as dist
 TIMEOUT_S = 300.0
 
 COUNTS: dict = {}
+# When a list, every counted call is also appended to it as (kind, bytes,
+# seconds): the sizes and times of single calls (chip_smoke.py).
+TRACE: list | None = None
 
 
 def reset_counts() -> None:
@@ -50,6 +72,8 @@ def _count(kind: str, nbytes: int, seconds: float) -> None:
     rec["calls"] += 1
     rec["bytes"] += int(nbytes)
     rec["seconds"] += seconds
+    if TRACE is not None:
+        TRACE.append((kind, int(nbytes), seconds))
 
 
 def rank_device(rank: int, device=None) -> torch.device:
@@ -98,12 +122,89 @@ def initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def rank() -> int:
+def global_rank() -> int:
+    """This process's rank in the whole process group."""
     return dist.get_rank() if initialized() else 0
 
 
-def world() -> int:
+def global_world() -> int:
+    """Ranks in the whole process group."""
     return dist.get_world_size() if initialized() else 1
+
+
+class Group:
+    """Ranks of the process group, in order: their global ranks
+    (``ranks``), this process's index among them (``rank``; -1 when it
+    is not a member), their count (``size``) and the torch.distributed
+    group (``pg``; None for the whole process group)."""
+
+    def __init__(self, ranks, pg=None):
+        self.ranks = [int(r) for r in ranks]
+        self.pg = pg
+        me = global_rank()
+        self.rank = self.ranks.index(me) if me in self.ranks else -1
+        self.size = len(self.ranks)
+
+    @property
+    def member(self) -> bool:
+        return self.rank >= 0
+
+    def __repr__(self) -> str:
+        return f"Group({self.ranks})"
+
+
+def new_group(ranks) -> Group:
+    """A group of the given global ranks.  Every rank of the process
+    group must make every group, members or not, in the same order."""
+    ranks = [int(r) for r in ranks]
+    if not initialized() or ranks == list(range(global_world())):
+        return Group(ranks, None)
+    return Group(ranks, dist.new_group(
+        ranks=ranks, timeout=datetime.timedelta(seconds=TIMEOUT_S)))
+
+
+_SCOPES: list = []
+
+
+@contextlib.contextmanager
+def scope(group: Group | None):
+    """Run the block with ``group`` as the current group (None: the
+    whole process group); this rank must be a member."""
+    if group is not None and not group.member:
+        raise ValueError(f"rank {global_rank()} is not in {group}")
+    _SCOPES.append(group)
+    try:
+        yield group
+    finally:
+        _SCOPES.pop()
+
+
+def current() -> Group | None:
+    """The current group (None: the whole process group)."""
+    return _SCOPES[-1] if _SCOPES else None
+
+
+def _pg():
+    g = current()
+    return None if g is None else g.pg
+
+
+def rank() -> int:
+    """This rank's index in the current group."""
+    g = current()
+    return global_rank() if g is None else g.rank
+
+
+def world() -> int:
+    """Ranks in the current group."""
+    g = current()
+    return global_world() if g is None else g.size
+
+
+def to_global(r: int) -> int:
+    """The global rank of the current group's rank ``r``."""
+    g = current()
+    return r if g is None else g.ranks[r]
 
 
 def backend() -> str | None:
@@ -122,7 +223,7 @@ def barrier() -> None:
     """A fence across the ranks (no-op for one process)."""
     if world() > 1:
         t0 = time.perf_counter()
-        dist.barrier()
+        dist.barrier(group=_pg())
         _count("barrier", 0, time.perf_counter() - t0)
 
 
@@ -143,7 +244,7 @@ def all_reduce_(t: torch.Tensor, kind: str) -> torch.Tensor:
     if world() == 1:
         return t
     t0 = _start(t)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=_pg())
     _count(kind, t.numel() * t.element_size(), time.perf_counter() - t0)
     return t
 
@@ -156,7 +257,7 @@ def all_gather(t: torch.Tensor, kind: str) -> torch.Tensor:
     raw = t.contiguous().reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(raw) for _ in range(world())]
     t0 = _start(t)
-    dist.all_gather(parts, raw)
+    dist.all_gather(parts, raw, group=_pg())
     _count(kind, raw.numel() * world(), time.perf_counter() - t0)
     return torch.stack(parts).view(t.dtype).reshape((world(),) + t.shape)
 
@@ -176,7 +277,7 @@ def gather_to_rank0(t: torch.Tensor, kind: str) -> list | None:
     parts = ([torch.empty_like(raw) for _ in range(world())]
              if rank() == 0 else None)
     t0 = _start(t)
-    dist.gather(raw, parts, dst=0)
+    dist.gather(raw, parts, dst=to_global(0), group=_pg())
     _count(kind, raw.numel() * world(), time.perf_counter() - t0)
     if parts is None:
         return None
@@ -191,7 +292,8 @@ def broadcast_object(obj, src: int = 0):
     t0 = time.perf_counter()
     dev = (torch.device("cuda", torch.cuda.current_device())
            if backend() == "nccl" else None)
-    dist.broadcast_object_list(box, src=src, device=dev)
+    dist.broadcast_object_list(box, src=to_global(src), group=_pg(),
+                               device=dev)
     _count("object", 0, time.perf_counter() - t0)
     return box[0]
 
@@ -213,3 +315,69 @@ def all_reduce_grads(params) -> int:
         p.grad = flat[off:off + n].view_as(p)
         off += n
     return flat.numel() * flat.element_size()
+
+
+def comm_device() -> torch.device:
+    """Where the backend's transfers live: this rank's GPU under NCCL,
+    the host under gloo."""
+    if backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast_(t: torch.Tensor, src: int, kind: str) -> torch.Tensor:
+    """Rank ``src``'s ``t`` (of the current group) into ``t`` on every
+    rank of the group, in place; returns it.  The bytes go through
+    ``comm_device()`` (the host under gloo)."""
+    if world() == 1:
+        return t
+    buf = t.contiguous().to(comm_device())
+    t0 = _start(t)
+    dist.broadcast(buf, src=to_global(src), group=_pg())
+    _count(kind, buf.numel() * buf.element_size(),
+           time.perf_counter() - t0)
+    if buf is not t:
+        with torch.no_grad():
+            t.copy_(buf.view_as(t))
+    return t
+
+
+# Tags of the point-to-point transfers, one per kind, so that two kinds
+# between the same pair of ranks never match each other's messages.
+_TAGS = {"halo": 11, "poses": 12, "snapshot": 13}
+
+
+class Transfer:
+    """A point-to-point send or receive in flight: ``wait()`` blocks
+    until it is done (adding the seconds it blocked to its kind) and
+    returns the tensor; the host buffer lives until then."""
+
+    def __init__(self, work, buf: torch.Tensor, kind: str):
+        self.work, self.buf, self.kind = work, buf, kind
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            t0 = time.perf_counter()
+            self.work.wait()
+            COUNTS[self.kind]["seconds"] += time.perf_counter() - t0
+            self.work = None
+        return self.buf
+
+
+def isend(t: torch.Tensor, dst: int, kind: str) -> Transfer:
+    """Start sending ``t`` to global rank ``dst``.  The bytes go from a
+    copy on ``comm_device()`` (the host under gloo, which sends host
+    memory); the caller may change ``t`` once this returns."""
+    buf = t.detach().contiguous().to(comm_device(), copy=True)
+    _count(kind, buf.numel() * buf.element_size(), 0.0)
+    return Transfer(dist.isend(buf, dst=int(dst), tag=_TAGS[kind]), buf,
+                    kind)
+
+
+def irecv(shape, dtype, src: int, kind: str) -> Transfer:
+    """Start receiving a tensor of ``shape`` and ``dtype`` from global
+    rank ``src`` onto ``comm_device()``; ``wait()`` returns it."""
+    buf = torch.empty(tuple(shape), dtype=dtype, device=comm_device())
+    _count(kind, buf.numel() * buf.element_size(), 0.0)
+    return Transfer(dist.irecv(buf, src=int(src), tag=_TAGS[kind]), buf,
+                    kind)

@@ -1,7 +1,8 @@
 """Keyframe-sharded bundle adjustment over the ranks of a process group.
 
-The port of ``myslam_tpu/parallel/distributed_ba.py`` (its ``kf`` axis;
-the composition with ray DP is not ported):
+The port of ``myslam_tpu/parallel/distributed_ba.py``, its ``kf`` axis
+and its composition with ray DP (``dp``: a K x D grid of ranks, rank r
+the kf row r // D and the dp column r % D):
 
   * **Keyframe partitioning.**  The keyframe imagery is sharded by slot
     (``KeyframeStore(shard=...)``): rank r holds slots
@@ -11,6 +12,12 @@ the composition with ray DP is not ported):
     ``(R, rays)`` draw that every rank makes from the shared draw source:
     the JAX package folds the shard index into the key, the port folds
     the rank into the stream the same way, and the stream stays one.
+  * **kf x dp.**  The imagery is sharded over the kf rows and replicated
+    along them; a row's ray budget splits over its dp columns
+    (``pixels / (K D)`` rays each, distinct draws: the JAX package folds
+    the dp index in after the kf index, the port takes row ``r`` of a
+    ``(K D, rays)`` draw), and every loss, gradient and Schur sum
+    reduces over all K D ranks.
   * **Map and decoder gradients.**  The map is replicated; the masked
     means are global (their sums and counts cross the ranks in one
     all-reduce), and the gradients are summed as one flat buffer in one
@@ -70,8 +77,10 @@ def _loss_weights(cfg: dict) -> tuple:
             float(m["w_sdf_tail"]), float(m["w_color"]), float(m["w_depth"]))
 
 
-def make_local_ray_picker(cam: Camera, n_rays: int, packed: bool = False):
-    """This rank's ray draw from the window slots it owns.
+def make_local_ray_picker(cam: Camera, n_rays: int, packed: bool = False,
+                          dp: int = 1):
+    """This rank's ray draw from the window slots its kf row owns (``dp``
+    columns per kf row; 1: every rank is a kf row).
 
     Returns pick(slot_kf (W,), n_slots, imagery, local_capacity, draws)
       -> (p (R,) window positions, i, j, px_depth, px_color, valid)
@@ -86,7 +95,8 @@ def make_local_ray_picker(cam: Camera, n_rays: int, packed: bool = False):
     HW = cam.H * cam.W
 
     def pick(slot_kf, n_slots, imagery, local_capacity: int, draws):
-        me, world = distributed.rank(), distributed.world()
+        r, world = distributed.rank(), distributed.world()
+        me = r // dp
         dev = slot_kf.device
         W = slot_kf.shape[0]
         pos = torch.arange(W, device=dev)
@@ -99,8 +109,8 @@ def make_local_ray_picker(cam: Camera, n_rays: int, packed: bool = False):
                       % torch.clamp(k_own, min=1)]
         valid = k_own > 0
         local_slot = (slot_kf % local_capacity)[p]
-        i = draws.randint((world, n_rays), 0, cam.W)[me].to(torch.float32)
-        j = draws.randint((world, n_rays), 0, cam.H)[me].to(torch.float32)
+        i = draws.randint((world, n_rays), 0, cam.W)[r].to(torch.float32)
+        j = draws.randint((world, n_rays), 0, cam.H)[r].to(torch.float32)
         flat = local_slot * HW + j.long() * cam.W + i.long()
         colors, depths, inv_q = imagery
         if packed:
@@ -282,11 +292,12 @@ def make_distributed_ba(cfg: dict, scene: SceneGeometry, cam: Camera,
 def make_kf_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                          selector, w_max: int, scratch_slot: int,
                          importance: bool = True, pose_solver: str = "adam",
-                         packed: bool = False):
+                         packed: bool = False, dp: int = 1):
     """One mapped frame with keyframe-sharded BA (the port of
-    ``make_kf_frame_mapper`` on a one-axis ``kf`` mesh), the same
-    contract as ``engine/mapper.make_frame_mapper`` over a store sharded
-    over the ranks (``KeyframeStore(shard=...)``):
+    ``make_kf_frame_mapper`` on a ``kf`` mesh, or with ``dp`` > 1 on a
+    ``(kf, dp)`` mesh of the ranks), the same contract as
+    ``engine/mapper.make_frame_mapper`` over a store sharded over the kf
+    rows (``KeyframeStore(shard=(rank // dp, K))``):
 
       * the current frame's imagery goes to the scratch slot's owner, and
         every rank selects the same window from the whole poses and the
@@ -311,7 +322,7 @@ def make_kf_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
     m = cfg["mapping"]
     n_rays = max(int(m["pixels"]) // distributed.world(), 1)
     quad_dtype = map_quad_dtype(cfg)
-    pick = make_local_ray_picker(cam, n_rays, packed)
+    pick = make_local_ray_picker(cam, n_rays, packed, dp)
     pose_system = make_pose_system(cfg, scene, cam, exact_color=True)
     schur = pose_solver == "schur"
 

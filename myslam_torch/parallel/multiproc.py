@@ -19,13 +19,21 @@ built once, before the gang starts.  Each rank runs one of:
     resumed by a fresh system on the same gang;
   * ``run_system(config)``: ``SLAMSystem`` on a config file, the loop
     alone, with this rank's record (trajectory, frame times, kernel
-    launches, collectives, peak memory, keyframe bytes).
+    launches, collectives, peak memory, keyframe bytes);
+  * ``run_validate(mode)``: a config whose parallel mode asks for fewer
+    ranks than the gang has must be refused (``{"rejected": 1.0}``);
+  * ``run_bigstep(mode)``: mapping chunks across the gang at the Replica
+    operating point (680x1200 imagery, 4,000 rays, 15-iteration chunks,
+    room-scale atlases, an 8-slot window): seconds per chunk and the
+    peak RSS.
 
-Every rank runs on its GPU (``distributed.rank_device``; it raises where
-there is none) unless ``device="cpu"`` is given to ``launch`` and the
-loops.  Every rank writes its result to ``<out>/rank<r>.json``;
-``launch`` returns them in rank order.  ``run_validate`` and
-``run_bigstep`` of the JAX module are not ported.
+``product_cfg`` and ``run_product`` take the modes ``dp``, ``kf``,
+``kfdp`` (2 kf rows x the rest as dp columns), ``map`` (banded map
+shards over every rank) and ``pipeline`` (one tracking rank, the rest
+mapping).  Every rank runs on its GPU (``distributed.rank_device``; it
+raises where there is none) unless ``device="cpu"`` is given to
+``launch`` and the loops.  Every rank writes its result to
+``<out>/rank<r>.json``; ``launch`` returns them in rank order.
 """
 
 from __future__ import annotations
@@ -220,13 +228,33 @@ def run_minislam(mode: str = "dp", frames: int = 6, seed: int = 0,
     return out
 
 
-def product_cfg(frames: int = 12, mode: str = "dp", size=(96, 128)) -> dict:
+# The ``parallel`` section of each product mode, over every rank of the
+# gang (kfdp: 2 kf rows, its dp columns the rest; pipeline: one tracking
+# rank, the rest mapping).
+PRODUCT_PARALLEL = {
+    "dp": {"devices": 0}, "kf": {"kf_shards": 0}, "map": {"map_shards": 0},
+    "pipeline": {"pipeline": True, "pipeline_track_devices": 1,
+                 "pipeline_map_devices": 0}}
+
+
+def product_parallel(mode: str, world: int) -> dict:
+    """The ``parallel`` section of product mode ``mode`` on ``world``
+    ranks."""
+    if mode == "kfdp":
+        return {"kf_shards": 2, "devices": max(world // 2, 1)}
+    if mode not in PRODUCT_PARALLEL:
+        raise ValueError(f"unknown mode {mode!r}")
+    return dict(PRODUCT_PARALLEL[mode])
+
+
+def product_cfg(frames: int = 12, mode: str = "dp", size=(96, 128),
+                world: int = 2) -> dict:
     """SLAMSystem's config for the product loop over the gang (the JAX
     package's ``product_cfg``): the synthetic room at ``size`` (H, W),
     the chunked 15-iteration schedule with a 31-iteration first frame,
     the packed keyframe store, admission every 4th frame, joint BA once
-    more than 4 keyframes, no panels, f32 quads; ``parallel.devices: 0``
-    (dp) or ``kf_shards: 0`` (kf) over every rank."""
+    more than 4 keyframes, no panels, f32 quads; the ``parallel``
+    section of ``mode`` on ``world`` ranks (``product_parallel``)."""
     from myslam_torch.utils.config import load_config, update_recursive
 
     cfg = load_config(
@@ -246,8 +274,8 @@ def product_cfg(frames: int = 12, mode: str = "dp", size=(96, 128)) -> dict:
                     "mapping_window_size": 6, "vis_freq": 10 ** 9,
                     "map_bf16": False},
         "rendering": {"n_stratified": 24, "n_importance": 8},
-        "parallel": ({"devices": 0} if mode == "dp" else {"kf_shards": 0}),
     })
+    cfg["parallel"] = product_parallel(mode, world)
     return cfg
 
 
@@ -264,10 +292,9 @@ def run_product(mode: str = "dp", frames: int = 12, seed: int = 0,
 
     from myslam_torch.engine.scheduler import SLAMSystem
     from myslam_torch.parallel import distributed
-    from myslam_torch.utils.logger import save_checkpoint
 
     device = distributed.rank_device(distributed.rank(), device)
-    cfg = product_cfg(frames, mode, size)
+    cfg = product_cfg(frames, mode, size, distributed.world())
     out_dir = tempfile.mkdtemp(prefix=f"product_{mode}_")
     slam = SLAMSystem(cfg, output=out_dir, seed=seed, device=device)
     slam.mesh_freq = slam.ckpt_freq = 10 ** 9
@@ -281,22 +308,24 @@ def run_product(mode: str = "dp", frames: int = 12, seed: int = 0,
 
     slam._map_frame = record
     slam.run(finalize=False)
-    save_checkpoint(os.path.join(out_dir, "ckpts",
-                                 f"{slam.n_img - 1:05d}.npz"), slam,
-                    slam.n_img - 1)
+    # The final checkpoint (under the pipeline, the map role's).
+    slam.finalize(mesh=False)
     slam2 = SLAMSystem(cfg, output=out_dir, seed=seed, device=device)
     start = slam2.resume()
+    # The map and the store are the map role's under the pipeline.
+    owns_map = slam.pipe is None or slam.pipe.is_map
     with torch.no_grad():
         est_err = float(np.abs(slam2.estimates - slam.estimates).max())
-        map_err = float((slam2.map_state.sdf_atlas
-                         - slam.map_state.sdf_atlas).abs().max())
+        map_err = (float((slam2.map_state.sdf_atlas
+                          - slam.map_state.sdf_atlas).abs().max())
+                   if owns_map else 0.0)
         st = slam.store
         rows = (min(st.slot_offset + st.local_capacity, st.count)
                 - min(st.slot_offset, st.count))
         store_err = max(
             [float((a[:rows].float() - b[:rows].float()).abs().max())
              for a, b in zip(slam2.store.imagery(), st.imagery())
-             if a is not None and rows > 0] + [0.0])
+             if a is not None and rows > 0 and owns_map] + [0.0])
     ok = (start == slam.n_img and slam2.store.count == slam.store.count
           and est_err == 0.0 and map_err == 0.0 and store_err == 0.0)
     out = {"est": slam.estimates, "map_losses": np.asarray(map_losses),
@@ -305,6 +334,118 @@ def run_product(mode: str = "dp", frames: int = 12, seed: int = 0,
     log(f"product[{mode}] rank {slam.rank}/{slam.n_proc}: resumed at "
         f"{start}, ok {ok}")
     return out
+
+
+def run_validate(mode: str = "kf", frames: int = 4, seed: int = 0,
+                 device=None, log=print) -> dict:
+    """SLAMSystem must refuse a config whose parallel mode asks for fewer
+    ranks than the gang has (the JAX package's ``run_validate``: a mesh
+    that does not span every process): ``kf_shards`` or ``devices`` of
+    one rank, the devices one process holds.  Returns {"rejected": 1.0}
+    when it raises naming the process group it needs, else 0.0."""
+    from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.parallel import distributed
+
+    device = distributed.rank_device(distributed.rank(), device)
+    cfg = product_cfg(frames, "kf" if mode == "kf" else "dp")
+    cfg["parallel"] = ({"kf_shards": 1} if mode == "kf"
+                       else {"devices": 1, "dp_impl": "shardmap"})
+    try:
+        SLAMSystem(cfg, output=tempfile.mkdtemp(prefix="val_"), seed=seed,
+                   device=device)
+    except ValueError as e:
+        if "needs a process group" not in str(e):
+            raise
+        log(f"validate[{mode}]: undersized mode refused: {e}")
+        return {"rejected": 1.0}
+    log(f"validate[{mode}]: undersized mode was ACCEPTED")
+    return {"rejected": 0.0}
+
+
+def run_bigstep(mode: str = "dp", frames: int = 3, seed: int = 0,
+                device=None, log=print) -> dict:
+    """Mapping chunks across the gang at the Replica operating point (the
+    JAX package's ``run_bigstep``): 680x1200 imagery, 4,000 rays in
+    15-iteration chunks, room.yaml's atlases, an 8-slot window of random
+    packed imagery dequantized once; ``mode`` dp (the bare mapper's ray
+    DP) or kf (keyframe-sharded BA, each rank holding its own slots).
+    ``frames`` chunks run, the first with the warm-up.  Returns
+    {"chunk_s": [...], "rss_mb": peak RSS of this process, "losses"}."""
+    import resource
+
+    import torch
+
+    from myslam_torch.core.quaternion import matrix_to_cam_pose
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.engine.mapper import make_mapper
+    from myslam_torch.models.config import get_model
+    from myslam_torch.models.planes import compute_bound, init_map_state
+    from myslam_torch.parallel import distributed
+    from myslam_torch.parallel.distributed_ba import make_distributed_ba
+    from myslam_torch.render.renderer import scene_from_cfg
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    dev = distributed.rank_device(distributed.rank(), device)
+    world = distributed.world()
+    cfg = load_config(os.path.join(_REPO, "configs", "Synthetic",
+                                   "room.yaml"), DEFAULT_CONFIG)
+    cfg["cam"].update(H=680, W=1200, fx=600.0, fy=600.0, cx=599.5,
+                      cy=339.5)
+    cfg["mapping"]["pixels"] = 4000
+    cam = Camera.from_cfg(cfg)
+    scene = scene_from_cfg(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    ms = init_map_state(gen, scene.sdf_layout, scene.color_layout,
+                        get_model(cfg, gen), device=dev)
+    w_max = 8  # full-resolution slots
+    cap = -(-w_max // world) * world
+    rng = np.random.default_rng(seed)
+    lo, hi = (0, cap) if mode == "dp" else distributed.host_shard(cap)
+    # Every rank makes the whole store from the seed and keeps its slots.
+    col = rng.integers(0, 255, (cap, cam.H, cam.W, 3), np.uint8)[lo:hi]
+    dep = rng.integers(1000, 30000, (cap, cam.H, cam.W), np.uint16)[lo:hi]
+    kf_c = (torch.as_tensor(col).to(dev).to(torch.float32)
+            / 255.0).to(torch.float16)
+    kf_d = torch.as_tensor(dep.astype(np.float32) / 6553.5).to(dev)
+    del col, dep
+    center = compute_bound(cfg).mean(axis=1)
+    c2ws = np.tile(np.eye(4, dtype=np.float32), (w_max, 1, 1))
+    c2ws[:, :3, 3] = center
+    poses = matrix_to_cam_pose(torch.as_tensor(c2ws).to(dev))
+    pose_mask = torch.ones((w_max,), device=dev)
+    pose_mask[0] = 0.0
+    slot_kf = torch.arange(w_max, device=dev)
+    iters = int(cfg["mapping"]["iters"])
+    draws = TorchDraws(seed, dev)
+    if mode == "dp":
+        step = make_mapper(cfg, scene, cam, importance=False, sharded=True)
+    elif mode == "kf":
+        step = make_distributed_ba(cfg, scene, cam, iters=iters,
+                                   pose_solver="adam")
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    chunk_s, losses = [], []
+    for _ in range(frames):
+        distributed.barrier()
+        t0 = time.perf_counter()
+        if mode == "dp":
+            _, out = step(ms, poses, pose_mask, slot_kf, w_max, kf_c, kf_d,
+                          draws, iters=iters, lr_factor=1.0)
+        else:
+            _, out = step(ms, poses, pose_mask, slot_kf, w_max,
+                          (kf_c, kf_d, None), cap // world, draws)
+        lv = out.cpu().numpy()  # a value read: the chunk has finished
+        if not np.isfinite(lv).all():
+            raise RuntimeError(f"bigstep[{mode}]: non-finite loss {lv}")
+        chunk_s.append(time.perf_counter() - t0)
+        losses.append(lv)
+    rss_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    log(f"bigstep[{mode}] over {world} rank(s): first chunk "
+        f"{chunk_s[0]:.2f} s, then {np.mean(chunk_s[1:] or chunk_s):.2f} "
+        f"s per 15-iteration chunk, peak RSS {rss_mb:.0f} MB")
+    return {"chunk_s": chunk_s, "rss_mb": rss_mb,
+            "losses": np.concatenate(losses)}
 
 
 def run_system(config: str, seed: int = 0, device=None,
@@ -353,8 +494,39 @@ def run_system(config: str, seed: int = 0, device=None,
                               .norm(dim=-1).max()) if n else 0.0)
 
     slam._map_frame = moved
+    # The pipeline's snapshots (a digest of each, as the map role posts
+    # them and as the track role takes them) and the map role's map after
+    # each mapped frame.
+    snaps = {"posted": [], "taken": [], "mapped": []}
+    if slam.pipe is not None:
+        import hashlib
+
+        from myslam_torch.parallel.pipeline import pack_map
+
+        def digest(flat):
+            return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+        link = slam.pipe
+        post, take = link.post_snapshot, link.take_snapshot
+
+        def posted(ms):
+            post(ms)
+            snaps["posted"].append(digest(link.last_snapshot))
+
+        def taken(into):
+            take(into)
+            snaps["taken"].append(digest(pack_map(into)))
+
+        link.post_snapshot, link.take_snapshot = posted, taken
+
+        def mapped_digest(system, idx):
+            mapped(system, idx)
+            snaps["mapped"].append(digest(pack_map(system.map_state)))
+
+        slam.on_map_done = mapped_digest
     cuda_sample.reset_launches()
     distributed.reset_counts()
+    distributed.TRACE = []
     for k in distributed_ba.SCHUR_LAUNCHES:
         distributed_ba.SCHUR_LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -363,6 +535,7 @@ def run_system(config: str, seed: int = 0, device=None,
     if cuda:
         torch.cuda.synchronize(slam.device)
     wall = time.perf_counter() - t0
+    trace, distributed.TRACE = distributed.TRACE, None
     peak = torch.cuda.max_memory_allocated(slam.device) if cuda else None
     # One checkpoint of the last frame, and the device memory each rank
     # takes for it above what it held (a sharded store is gathered to
@@ -403,10 +576,39 @@ def run_system(config: str, seed: int = 0, device=None,
         "store_imagery_bytes": slam.store.imagery_bytes(),
         "peak_mem_gb": peak / 1e9 if cuda else None,
         "ckpt_extra_mem_bytes": ckpt_bytes,
+        "frame_start_s": (np.asarray(slam.frame_start_wall)
+                          - slam.frame_start_wall[0]).tolist(),
+        "drain_s": slam.drain_wall - slam.frame_start_wall[0],
+        "snapshots": snaps,
+        "pipeline_role": (None if slam.pipe is None else
+                          "map" if slam.pipe.is_map else "track"),
+        # The map this rank's mapping optimizes (map shards: its bands)
+        # and the digest of the replicated map it ends with.
+        "map_atlas_bytes": _atlas_bytes(getattr(slam, "_map_banded", None)
+                                        or slam.map_state),
+        "map_digest": _map_digest(slam.map_state),
+        # The collectives' calls one by one: (kind, bytes, seconds).
+        "trace": trace,
     }
     log(f"system rank {slam.rank}/{slam.n_proc}: {slam.n_img} frames, ATE "
         f"{out['ate_rmse_cm']:.3f} cm")
     return out
+
+
+def _atlas_bytes(ms) -> int:
+    """Bytes of a map's two atlases (Adam keeps two moments of each)."""
+    return sum(t.numel() * t.element_size()
+               for t in (ms.sdf_atlas, ms.color_atlas))
+
+
+def _map_digest(ms) -> str:
+    """sha256 of the map's atlases and decoder parameters, as bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in [ms.sdf_atlas, ms.color_atlas, *ms.decoder.parameters()]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _jsonable(v):
@@ -430,8 +632,10 @@ def worker_main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="cpu, or a CUDA device (default: the rank's GPU)")
     p.add_argument("--loop", default="mini",
-                   choices=("mini", "product", "system"))
-    p.add_argument("--mode", default="dp", choices=("dp", "kf"))
+                   choices=("mini", "product", "system", "validate",
+                            "bigstep"))
+    p.add_argument("--mode", default="dp",
+                   choices=("dp", "kf", "kfdp", "map", "pipeline"))
     p.add_argument("--frames", type=int, default=None,
                    help="frames of the loop (default: the loop's own)")
     p.add_argument("--seed", type=int, default=0)
@@ -461,6 +665,10 @@ def worker_main(argv=None) -> None:
             H, W = (int(v) for v in args.size.split("x"))
             out = run_product(args.mode, args.frames or 12, args.seed, dev,
                               (H, W))
+        elif args.loop == "validate":
+            out = run_validate(args.mode, args.frames or 4, args.seed, dev)
+        elif args.loop == "bigstep":
+            out = run_bigstep(args.mode, args.frames or 3, args.seed, dev)
         else:
             out = run_system(args.config, args.seed, dev, args.frames)
         with open(os.path.join(args.out, f"rank{args.procid}.json"),
@@ -527,9 +735,10 @@ def launch(nproc: int, mode: str = "dp", frames: int | None = None,
            device=None, config: str | None = None,
            replay: str | None = None, size=(96, 128),
            overrides: dict | None = None) -> list[dict]:
-    """Run ``loop`` ("mini", "product" or "system") on a gang of
-    ``nproc`` ranks; returns each rank's result in rank order.
-    ``frames`` None: the loop's own count (6, 12, the config's).  Raises
+    """Run ``loop`` ("mini", "product", "system", "validate" or
+    "bigstep") on a gang of ``nproc`` ranks; returns each rank's result
+    in rank order.  ``frames`` None: the loop's own count (6, 12, the
+    config's, 4, 3).  Raises
     with the failing rank's output when a rank exits abnormally or the
     gang outlives ``timeout`` seconds."""
     prebuild(device)

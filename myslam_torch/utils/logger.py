@@ -114,11 +114,24 @@ def save_checkpoint(path: str, slam, idx: int) -> str | None:
         kf_has_depthless=np.asarray(store.has_depthless[:n], bool),
         draws_generator_state=slam.draws.generator.get_state().numpy(),
         allow_pickle=True,
+        **_pipeline_fields(slam),
     )
     with open(tmp, "rb") as f:
         os.fsync(f.fileno())
     os.replace(tmp, path)
     return path
+
+
+def _pipeline_fields(slam) -> dict:
+    """Under the track||map pipeline (``parallel/pipeline.py``), what the
+    track role needs to go on from the checkpoint: its trajectory rows
+    (``pipeline_track_est``) and the map snapshot it holds
+    (``pipeline_snapshot``, flat)."""
+    link = getattr(slam, "pipe", None)
+    if link is None or link.last_snapshot is None:
+        return {}
+    return {"pipeline_track_est": slam.est_track.detach().cpu().numpy(),
+            "pipeline_snapshot": link.last_snapshot.numpy()}
 
 
 def restore_map(data, ms) -> None:

@@ -25,8 +25,12 @@ the completed child's JSON line as its own last line.
 
 ``--launch N`` runs the job as a gang of N ranks, one process and one
 device each (rank r on ``cuda:(r % device_count)``, or all on the CPU
-with ``--device cpu``), for configs whose ``parallel.devices`` or
-``parallel.kf_shards`` is N or 0: the kernels are built once, then N
+with ``--device cpu``), for configs whose parallel mode takes N ranks:
+``parallel.devices``, ``kf_shards`` or ``map_shards`` of N (or 0),
+``kf_shards: K`` with ``devices: D`` (N = K * D), or ``pipeline: true``
+(``pipeline_track_devices`` tracking ranks, the rest mapping; the map
+role's lead writes the checkpoints and meshes into rank 0's output
+folder): the kernels are built once, then N
 copies of this script start with ``--nproc N --procid r --coordinator
 host:port``; the launcher polls them and, when one exits abnormally,
 kills the others and exits with its code.  Ranks share a GPU over gloo

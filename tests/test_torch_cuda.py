@@ -24,7 +24,11 @@ decoders' matmuls and the compositing's products round in another
 order on the card).  Marching, the
 depth rasterizer and the mesh culling's visibility run on the card and
 the CPU with the same rounding (elementwise operations, a stable sort, a
-minimum): held bit for bit.
+minimum): held bit for bit.  The banded K1 / K2 (a map shard's band
+atlas, ``parallel/plane_shard.py``) on 2 and 3 shards and both quad
+types against their plain banded versions at 1e-5 of the largest value,
+their parts summed over the shards against the unbanded plain version,
+and ``SampleBanded``'s gradients on the card against the CPU's.
 """
 
 import ctypes
@@ -155,6 +159,100 @@ def test_smem_kernel_matches_plain_version_and_k1(dev, bound, res, c_dim,
     # make_sample_quad_smem casts an f32 quad to its atlas dtype.
     built = smem_sample.make_sample_quad_smem(layout, 5000, dtype)
     torch.testing.assert_close(built(quad.float(), p), out, atol=0, rtol=0)
+
+
+def _bands(layout, atlas, n, dev, dtype):
+    """Each shard's band layout and halo-packed band quad, from the
+    unsharded atlas."""
+    from myslam_torch.parallel import plane_shard as tps
+
+    ts = tps.ShardedPlaneLayout(layout, n)
+    rows = ts.local_rows
+    sharded = torch.tensor(ts.shard_atlas(atlas), device=dev)
+    out = []
+    for d in range(n):
+        last = d == n - 1
+        nxt = sharded[(d if last else d + 1) * rows:][:rows]
+        quad = tps.pack_local(sharded[d * rows:(d + 1) * rows],
+                              tps.first_rows(nxt, ts), ts, last)
+        out.append((ts.band(d), quad.to(dtype).contiguous()))
+    return ts, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 3])
+def test_banded_kernels_match_plain_versions(dev, dtype, n):
+    layout, atlas, p_nor, gbar = _inputs(10)
+    p = torch.tensor(p_nor, device=dev)
+    g = torch.tensor(gbar, device=dev)
+    ts, bands = _bands(layout, atlas, n, dev, dtype)
+    fwd_sum, pg_sum, qgs = 0, 0, []
+    for band, quad in bands:
+        before = dict(cuda_sample.LAUNCHES)
+        out = cuda_sample.plane_sample_fwd_banded(quad, band, p)
+        qg, pg = cuda_sample.plane_sample_bwd_banded(g, quad, band, p)
+        none, pg_only = cuda_sample.plane_sample_bwd_banded(
+            g, quad, band, p, need_quad_grad=False)
+        torch.cuda.synchronize()
+        assert cuda_sample.LAUNCHES == {
+            **before, "plane_sample_fwd_banded":
+            before["plane_sample_fwd_banded"] + 1,
+            "plane_sample_bwd_banded": before["plane_sample_bwd_banded"] + 2}
+        assert none is None
+        ref = cuda_sample.plane_sample_fwd_banded_ref(quad, band, p)
+        rqg, rpg = cuda_sample.plane_sample_bwd_banded_ref(g, quad, band, p)
+        _assert_within(out, ref, "banded forward")
+        _assert_within(qg, rqg, "banded quad_grad")
+        _assert_within(pg, rpg, "banded p_grad")
+        _assert_within(pg_only, rpg, "banded p_grad without quad_grad")
+        fwd_sum, pg_sum = fwd_sum + out, pg_sum + pg
+        qgs.append(qg.cpu().numpy())
+    quad = pack_quad(torch.tensor(atlas, device=dev), layout).to(dtype)
+    _assert_within(fwd_sum, cuda_sample.plane_sample_fwd_ref(quad, layout, p),
+                   "the shards' forward summed")
+    rqg, rpg = cuda_sample.plane_sample_bwd_ref(g, quad, layout, p)
+    _assert_within(pg_sum, rpg, "the shards' p_grad summed")
+    _assert_within(torch.tensor(ts.unshard_atlas(np.concatenate(qgs))),
+                   rqg.cpu(), "the shards' quad_grad, unsharded")
+
+
+@pytest.mark.cuda
+def test_sample_banded_autograd_on_the_card_matches_the_cpu(dev):
+    from myslam_torch.ops.plane_sample import sample_banded
+    from myslam_torch.parallel import plane_shard as tps
+
+    layout, atlas, p_nor, gbar = _inputs(11)
+    ts = tps.ShardedPlaneLayout(layout, 2)
+    rows = ts.local_rows
+    grads = {}
+    for d in (torch.device("cpu"), dev):
+        sharded = torch.tensor(ts.shard_atlas(atlas), device=d)
+        local = sharded[:rows].clone().requires_grad_()
+        p = torch.tensor(p_nor, device=d, requires_grad=True)
+        quad = tps.pack_local(local, tps.first_rows(sharded[rows:], ts), ts,
+                              False)
+        out = sample_banded(quad, ts.band(0), p)
+        out.backward(torch.tensor(gbar, device=d))
+        grads[d.type] = (out.detach().cpu(), local.grad.cpu(), p.grad.cpu())
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_banded_entries_refuse_a_missing_band_table(dev):
+    layout, atlas, p_nor, _ = _inputs(12)
+    _, bands = _bands(layout, atlas, 2, dev, torch.float32)
+    band, quad = bands[0]
+    p = torch.tensor(p_nor, device=dev)
+    out = torch.empty((N_PTS, 2 * 4 * C_DIM), device=dev)
+    planes, _ = cuda_sample._band_tables(band)
+    run, warps, blocks = cuda_sample.fwd_launch_plan(N_PTS)
+    err = cuda_sample.load().plane_sample_fwd_banded(
+        p.data_ptr(), quad.data_ptr(), 0, out.data_ptr(), N_PTS, 4 * C_DIM,
+        2, ctypes.cast(planes, ctypes.c_void_p), None, run, warps, blocks,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
 
 
 def _walk_points(kind: str, rng, R: int, B: int) -> np.ndarray:

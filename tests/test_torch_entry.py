@@ -89,7 +89,8 @@ def test_the_gang_imports_no_jax():
     parallel = sorted(
         os.path.join(REPO, "myslam_torch", "parallel", f) for f in
         ("__init__.py", "distributed.py", "distributed_ba.py",
-         "multiproc.py"))
+         "multiproc.py", "pipeline.py", "plane_shard.py",
+         "sharded_engine.py"))
     assert set(parallel) <= set(_port_sources())
     for path in parallel + [os.path.join(REPO, "tests", "torch_gang.py")]:
         with open(path) as f:

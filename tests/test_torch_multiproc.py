@@ -137,14 +137,18 @@ def test_rank0_decides_the_resume(monkeypatch):
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no GPU")
-@pytest.mark.parametrize("loop", ["mini", "product", "system"])
+@pytest.mark.parametrize("loop", ["mini", "product", "system",
+                                  "validate", "bigstep"])
 def test_gang_loops_default_to_the_gpu(tmp_path, loop):
-    """run_minislam, run_product and run_system without ``device`` ask
-    for the rank's GPU (``distributed.rank_device``) and raise where
-    there is none, instead of running on the CPU."""
+    """run_minislam, run_product, run_system, run_validate and
+    run_bigstep without ``device`` ask for the rank's GPU
+    (``distributed.rank_device``) and raise where there is none, instead
+    of running on the CPU."""
     call = {"mini": lambda: multiproc.run_minislam("dp", frames=2),
             "product": lambda: multiproc.run_product("dp", frames=2),
             "system": lambda: multiproc.run_system(
-                gang_config(tmp_path, 2))}[loop]
+                gang_config(tmp_path, 2)),
+            "validate": lambda: multiproc.run_validate("kf"),
+            "bigstep": lambda: multiproc.run_bigstep("dp")}[loop]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -1,6 +1,6 @@
 """The port's ray-DP mapper and sharded tracker on 2 gloo ranks against
 the JAX package's on 2 of the virtual CPU devices (conftest), and the
-parallel modes the port refuses; keyframe-sharded BA is held in
+parallel settings the port refuses; keyframe-sharded BA is held in
 test_torch_parallel_ba.py with the helpers and rules of this file.
 
 Each port case runs on a gang of two spawned CPU ranks
@@ -340,16 +340,18 @@ def test_frame_tracker_matches_jax():
 
 @pytest.mark.parametrize("parallel, names", [
     ({"map_shards": 2}, "parallel.map_shards"),
-    ({"pipeline": True}, "parallel.pipeline"),
+    ({"pipeline": True, "devices": 2}, "parallel.pipeline"),
     ({"kf_shards": 2, "devices": 2}, "kf_shards x parallel.devices"),
     ({"dp_impl": "spmd"}, "parallel.dp_impl: spmd"),
     ({"devices": 2}, "parallel.devices (dp, 2 rank(s))"),
     ({"kf_shards": 2}, "parallel.kf_shards (kf, 2 rank(s))"),
 ])
 def test_scheduler_refuses_what_it_does_not_run(tmp_path, parallel, names):
-    """Each mode the port does not run, and devices or kf_shards of 2
-    without a 2-rank process group, raise a ValueError naming the mode
-    instead of running on one device."""
+    """``dp_impl: spmd``, which the port does not run, the pipeline
+    combined with ray DP, which the JAX package refuses, and map_shards,
+    kf x dp, devices or kf_shards of 2 without a process group of their
+    rank count, raise a ValueError naming the mode instead of running on
+    one device (test_torch_kf_dp.py has the other refusals)."""
     cfg = load_config("configs/Synthetic/room_smoke.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = 2
     cfg["parallel"].update(parallel)

@@ -306,3 +306,121 @@ def gather_store_case(H, W, capacity, packed):
     return {"mine": mine, "counts": _counts(),
             "full": None if full is None else [
                 b.numpy() for b in full.imagery() if b is not None]}
+
+
+def sharded_frame_case(cfg, spec, map_np_, store_np, packet, draws, iters,
+                       cap, window):
+    """engine/mapper.make_frame_mapper over parallel/sharded_engine's
+    banded map (``queries_factory``) on this rank for one frame over a
+    ``cap``-slot store: the losses, the replicated map after unshard,
+    the trajectory, the store's poses and the collectives."""
+    import torch
+
+    from myslam_torch.core.sampling import ReplayDraws
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.engine.keyframes import KeyframeStore, \
+        make_window_selector
+    from myslam_torch.parallel import distributed
+    from myslam_torch.engine.mapper import make_frame_mapper
+    from myslam_torch.parallel.sharded_engine import ShardedMapGeometry
+
+    distributed.reset_counts()
+    cam = Camera.from_cfg(cfg)
+    scene = _scene(spec)
+    store = KeyframeStore(cap, cam, "cpu")
+    with torch.no_grad():
+        for name in ("colors", "depths", "est_c2w", "gt_c2w"):
+            getattr(store, name).copy_(torch.as_tensor(store_np[name]))
+    store.count = int(store_np["count"])
+    w_max = window + 2
+    selector = make_window_selector(cam, cap, window, w_max, cap - 1)
+    geom = ShardedMapGeometry(scene, distributed.world(), distributed.rank())
+    mapper = make_frame_mapper(cfg, scene, cam, selector, w_max, cap - 1,
+                               importance=True,
+                               queries_factory=geom.queries_factory)
+    ms = _map(map_np_)
+    banded = geom.shard(ms)
+    est = torch.as_tensor(store_np["est"]).clone()
+    replay = ReplayDraws(draws)
+    losses = mapper(banded, store, est, torch.as_tensor(packet["color_u8"]),
+                    torch.as_tensor(packet["depth_u16"]),
+                    float(packet["inv_q"]), torch.as_tensor(packet["gt_c2w"]),
+                    int(packet["idx"]), replay, iters=iters, lr_factor=1.0,
+                    joint_opt=True, admit=True)
+    geom.unshard(banded, into=ms)
+    return {"losses": losses.numpy(), "map": _map_out(ms),
+            "est": est.numpy(), "kf_est": store.est_c2w.numpy(),
+            "band_rows": int(banded.sdf_atlas.shape[0]),
+            "left": len(replay), "counts": _counts()}
+
+
+def kfdp_frame_case(cfg, spec, map_np_, store_np, packet, draws, iters,
+                    solver, grid, cap, window):
+    """make_kf_frame_mapper(dp=D) on this rank of the ``grid`` (K, D),
+    over a ``cap``-slot store sharded over the kf rows: the losses, the
+    trajectory, the store's poses, the map, this row's imagery and the
+    collectives."""
+    import torch
+
+    from myslam_torch.core.sampling import ReplayDraws
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.engine.keyframes import KeyframeStore, \
+        make_window_selector
+    from myslam_torch.parallel import distributed
+    from myslam_torch.parallel.distributed_ba import make_kf_frame_mapper
+
+    distributed.reset_counts()
+    K, D = grid
+    cam = Camera.from_cfg(cfg)
+    store = KeyframeStore(cap, cam, "cpu",
+                          shard=(distributed.rank() // D, K))
+    lo = store.slot_offset
+    with torch.no_grad():
+        store.colors.copy_(torch.as_tensor(
+            store_np["colors"][lo:lo + store.local_capacity]))
+        store.depths.copy_(torch.as_tensor(
+            store_np["depths"][lo:lo + store.local_capacity]))
+        store.est_c2w.copy_(torch.as_tensor(store_np["est_c2w"]))
+        store.gt_c2w.copy_(torch.as_tensor(store_np["gt_c2w"]))
+    store.count = int(store_np["count"])
+    w_max = window + 2
+    selector = make_window_selector(cam, cap, window, w_max, cap - 1)
+    mapper = make_kf_frame_mapper(cfg, _scene(spec), cam, selector, w_max,
+                                  cap - 1, importance=False,
+                                  pose_solver=solver, dp=D)
+    ms = _map(map_np_)
+    est = torch.as_tensor(store_np["est"]).clone()
+    replay = ReplayDraws(draws)
+    losses = mapper(ms, store, est, torch.as_tensor(packet["color_u8"]),
+                    torch.as_tensor(packet["depth_u16"]),
+                    float(packet["inv_q"]),
+                    torch.as_tensor(packet["gt_c2w"]), int(packet["idx"]),
+                    replay, iters=iters, lr_factor=1.0, joint_opt=True,
+                    admit=True)
+    return {"losses": losses.numpy(), "est": est.numpy(),
+            "kf_est": store.est_c2w.numpy(), "map": _map_out(ms),
+            "colors": store.colors.numpy(), "slot_offset": lo,
+            "left": len(replay), "counts": _counts()}
+
+
+def system_case(config, out_dir, resume=False):
+    """SLAMSystem's loop on the config file ``config`` on this rank,
+    writing into ``out_dir`` (resumed from its newest checkpoint with
+    ``resume``): the trajectory, the replicated map (None on the
+    pipeline's track role, which holds a snapshot), where it started and
+    the collectives."""
+    from myslam_torch.engine.scheduler import SLAMSystem
+    from myslam_torch.parallel import distributed
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    distributed.reset_counts()
+    slam = SLAMSystem(load_config(config, DEFAULT_CONFIG), output=out_dir,
+                      device="cpu")
+    start = slam.resume() if resume else 0
+    slam.run(start, finalize=False)
+    owns_map = slam.pipe is None or slam.pipe.is_map
+    return {"est": slam.estimates, "start": start,
+            "map": _map_out(slam.map_state) if owns_map else None,
+            "role": None if slam.pipe is None else
+            "map" if slam.pipe.is_map else "track",
+            "counts": _counts()}
