@@ -145,7 +145,20 @@ Phases, one JSON line each:
                      fitted floor and slope.
 
 Phase 2 also holds K1 and K2 at the TUM schedule's shapes (280,000
-mapping and tracking points, bf16 quads).
+mapping and tracking points, bf16 quads).  Beside phase 10 runs
+``dp_host_staged``: phase 9's run on a gang of 2 ranks (``parallel.devices:
+2``), each holding the whole host store and line cache: every rank's
+trajectory bit for bit, every frame within STORE_GATE_M of phase 9's,
+every rank's bound cache lines equal to their host slots, one selection
+fetch per mapped frame, host bytes per rank.  After phase 16,
+``scaling``: tools/validate_scaling.py's rows from phases dp and dp_spmd
+(bytes per mapping iteration by kind against
+``scaling_report.atlas_grad_bytes``: plain DP's all-reduce at 1.00;
+ZeRO's reduction the same bytes, its all-gather the atlases' padded
+rows), tools/scaling_report.py from phases components and raysweep, the
+link rate of phase dp's all-reduces and the host ms per frame of phase
+slam's metrics.jsonl, and tools/bench_pose_solver.py on 2 shards at
+POSE_SOLVER_BUDGET_S seconds a solver.
 
 Between phases 4 and 5 the gang runs, GANG_RANKS ranks (one process
 each, ``myslam_torch/parallel/multiproc.launch``) sharing the card over
@@ -186,6 +199,14 @@ per mapping iteration:
                      0 cut to KF_DP_ITERS_FIRST iterations: every rank's
                      trajectory bit for bit, one gradient all-reduce per
                      iteration, the imagery per rank;
+  * dp_spmd       -- ray DP under ``dp_impl: spmd`` with ``zero_opt`` (the
+                     draws one device makes, Adam's atlas moments
+                     row-sharded): every rank's trajectory and map bit for
+                     bit, within DP_GATE_M of phase slam's trajectory, the
+                     collectives by kind (one ``grad_rs`` and one
+                     ``zero_gather`` per mapping iteration, with their
+                     bytes), each rank's Adam moments against the
+                     replicated Adam's (half, to a row), K1/K2 launches;
   then, each alone:
   * pipeline      -- the track||map pipeline (``parallel.pipeline``: rank 0
                      tracks, rank 1 maps): every frame within
@@ -227,7 +248,8 @@ bound, plain and library times, and K1's and K2's launches in phase 14
 as ``launches_vis``; K1's and K2's launches per rank in the gang's
 phases as ``launches_dp``, ``launches_kf_schur`` (the pose system's
 alone as ``launches_kf_schur_pose_system``), ``launches_gang_resume``,
-``launches_pipeline``, ``launches_map_shards`` and ``launches_kf_dp``,
+``launches_pipeline``, ``launches_map_shards``, ``launches_kf_dp``,
+``launches_dp_spmd`` and ``launches_dp_host_staged``,
 and K2's at the Schur pullback as ``ms_schur_p_grad_only`` with its
 bound; the banded K1 / K2 as kernels of their own, band 0's times and
 both bands' as ``ms_bands``, their launches in phase map_shards), and
@@ -345,8 +367,10 @@ IMAGE_CHUNK_INDEX = 10
 # per ray count.
 COMPONENT_ITERS = 10
 RAYSWEEP_REPS = 2
-# The gang (phases dp, dp_again, kf_schur, gang_resume): room.yaml at full
-# width over GANG_RANKS ranks, one process each, sharing the card.
+# The gang (phases dp, dp_again, kf_schur, gang_resume): GANG_CONFIG
+# (room.yaml) at full width over GANG_RANKS ranks, one process each,
+# sharing the card; phase scaling reads its payload from GANG_CONFIG too.
+GANG_CONFIG = "configs/Synthetic/room.yaml"
 GANG_RANKS = 2
 GANG_KILL = f"{KILL_FRAME}:1"  # rank 1 dies at frame 9
 # Gates from the gang's own spread on the card, 3x the largest per-frame
@@ -388,6 +412,13 @@ KF_DP_GRID = (2, 2)
 KF_DP_ITERS_FIRST = 200
 # Phase bigstep: mapping chunks of run_bigstep over GANG_RANKS ranks.
 BIGSTEP_CHUNKS = 3
+# Phase dp_spmd: ray DP that draws what one device draws, with the
+# row-sharded Adam (the JAX package's zero_opt default).
+DP_SPMD = {"devices": GANG_RANKS, "dp_impl": "spmd", "zero_opt": True}
+# Phase scaling: the seconds each pose solver gets.
+POSE_SOLVER_BUDGET_S = 2.0
+# The mapping collectives validate_scaling reads.
+MAP_KINDS = ("grad", "grad_rs", "zero_gather", "loss")
 EMIT_LOCK = threading.Lock()
 
 
@@ -1501,7 +1532,7 @@ def run_slam_host_staged(packed_est, floor_m: float) -> dict:
     against phase slam_packed's trajectory (within STORE_GATE_M per
     frame; ``floor_m`` is two packed runs' distance); then finalize()
     (checkpoint, mesh from the host-side depths, cull) and the checkpoint
-    resumed."""
+    resumed.  Returns the record and the trajectory."""
     from myslam_torch.utils import mesher
 
     cfg = tum_config("host_staged")
@@ -1509,7 +1540,7 @@ def run_slam_host_staged(packed_est, floor_m: float) -> dict:
     store = store_record(slam)
     if slam.store.mode != "host_staged" or not store["host_pinned"]:
         raise AssertionError(f"host_staged store: {store}")
-    store["bound_lines"] = check_cache(slam.store)
+    store["bound_lines"] = slam.store.check_cache()
     mapped = rec["mapped_frames"]
     if slam.selection_fetches != mapped:
         raise AssertionError(f"{slam.selection_fetches} selection fetches "
@@ -1540,30 +1571,7 @@ def run_slam_host_staged(packed_est, floor_m: float) -> dict:
            "packed_noise_floor_m": floor_m, "gate_m": STORE_GATE_M,
            "finalize": fin, **check_resume(slam)}
     emit(rec)
-    return rec
-
-
-def check_cache(store) -> int:
-    """Every cache line bound to a slot holds that slot's host imagery
-    byte for byte, and the slot maps back to it; returns the count of
-    bound lines."""
-    import torch
-
-    bound = 0
-    for ln, s in enumerate(store.slot_of_line):
-        if s < 0:
-            continue
-        same = (store.line_of_slot[s] == ln
-                and torch.equal(store.cache_colors[ln].cpu(),
-                                store.colors_u8[s])
-                and torch.equal(store.cache_depths[ln].cpu(),
-                                store.depths_u16[s])
-                and float(store.cache_inv_q[ln]) == float(
-                    store.depth_inv_q[s]))
-        if not same:
-            raise AssertionError(f"cache line {ln} does not hold slot {s}")
-        bound += 1
-    return bound
+    return rec, slam.estimates
 
 
 def run_host_evict(floor_m: float) -> dict:
@@ -1590,7 +1598,7 @@ def run_host_evict(floor_m: float) -> dict:
             "est": slam.estimates, "cache_lines": slam.store.cache_lines,
             "cache_misses": slam.store.cache_misses,
             "selection_fetches": slam.selection_fetches,
-            "bound_lines": check_cache(slam.store),
+            "bound_lines": slam.store.check_cache(),
             "mapped_frames": rec["mapped_frames"],
             "w_max": slam.w_max, "launches": rec["launches"],
             **{k: rec[k] for k in ("track_ms_mean", "map_ms_steady_mean",
@@ -2118,13 +2126,13 @@ def run_raysweep() -> dict:
 
 def gang_config(name: str, parallel: dict,
                 mapping: dict | None = None) -> str:
-    """room.yaml at full width cut to N_FRAMES frames under ``parallel``,
+    """GANG_CONFIG at full width cut to N_FRAMES frames under ``parallel``,
     a checkpoint every 4 frames and no periodic mesh; its output folder
     emptied.  Returns the config file's path."""
     root = os.path.abspath(os.path.join("output", "chip_smoke", name))
     shutil.rmtree(root, ignore_errors=True)
     return write_config(root + ".yaml", {
-        "inherit_from": os.path.abspath("configs/Synthetic/room.yaml"),
+        "inherit_from": os.path.abspath(GANG_CONFIG),
         "data": {"n_frames": N_FRAMES, "output": root},
         "mapping": {"ckpt_freq": 4, "mesh_freq": 10 ** 6,
                     **(mapping or {})},
@@ -2201,8 +2209,9 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
             raise AssertionError(
                 f"{phase}: rank {r} gradient all-reduces per mapped frame "
                 f"{rec['grad_allreduces']}, iterations {rec['map_iters']}")
-        grad = rec["collectives"].get("grad", {"bytes": 0, "calls": 0,
-                                              "seconds": 0.0})
+        grad = rec["collectives"].get(
+            "grad_rs", rec["collectives"].get(
+                "grad", {"bytes": 0, "calls": 0, "seconds": 0.0}))
         calls = max(grad["calls"], 1)
         emit({"phase": phase, "rank": r, "backend": rec["backend"],
               "device": rec["device"], "parallel": rec["parallel"],
@@ -2706,6 +2715,170 @@ def run_bigstep() -> dict:
     return out
 
 
+def run_dp_spmd(slam_rec: dict, slam_est) -> list:
+    """Phase dp_spmd: ray DP under ``dp_impl: spmd`` with ``zero_opt``
+    (DP_SPMD) on GANG_RANKS ranks (run_gang's gates), every rank's map
+    bit for bit (the all-gathered rows), within DP_GATE_M per frame of
+    phase slam's trajectory, one ``grad_rs`` and one ``zero_gather`` per
+    mapping iteration and no ``grad``, and each rank's Adam moments of
+    the atlases half the replicated Adam's, to a row.  Returns the
+    ranks' records."""
+    import numpy as np
+
+    recs = run_gang("dp_spmd", gang_config("dp_spmd", DP_SPMD))
+    r0 = recs[0]
+    vs_slam = translation_diff(np.asarray(r0["est"]), slam_est)
+    iters = sum(r0["map_iters"])
+    per_rank = []
+    for r, rec in enumerate(recs):
+        c, adam = rec["collectives"], rec["adam_bytes"]
+        # One row of each atlas (32 channels) in both moments: the first
+        # rank's block is ceil(rows / 2) rows.
+        row_slack = 2 * 2 * 4 * 32
+        if (rec["plan"] != {"mode": "dp", "spmd": True, "zero_opt": True}
+                or "grad" in c or c["grad_rs"]["calls"] != iters
+                or c["zero_gather"]["calls"] != iters
+                or rec["map_digest"] != r0["map_digest"]
+                or not 0 < adam["atlas_moments"]
+                <= adam["atlas_moments_replicated"] / 2 + row_slack):
+            raise AssertionError(f"dp_spmd: rank {r} plan {rec['plan']}, "
+                                 f"collectives {c}, Adam {adam}")
+        per_rank.append({
+            "grad_rs_bytes": c["grad_rs"]["bytes"] // iters,
+            "grad_rs_ms_mean": 1e3 * c["grad_rs"]["seconds"] / iters,
+            "zero_gather_bytes": c["zero_gather"]["bytes"] // iters,
+            "zero_gather_ms_mean": 1e3 * c["zero_gather"]["seconds"]
+            / iters, "adam_bytes": adam})
+    if not vs_slam.max() < DP_GATE_M:
+        raise AssertionError(f"dp_spmd: {vs_slam} m from phase slam's "
+                             f"trajectory; gate {DP_GATE_M} m")
+    emit({"phase": "dp_spmd_summary", "ranks": GANG_RANKS,
+          "parallel": DP_SPMD, "backend": r0["backend"],
+          "ate_rmse_cm": r0["ate_rmse_cm"], "map_iters": iters,
+          "per_rank": per_rank,
+          "launches": [r["launches"] for r in recs],
+          "peak_mem_gb": [r["peak_mem_gb"] for r in recs],
+          **gang_speed(recs, slam_rec),
+          "max_translation_diff_vs_slam_m": float(vs_slam.max()),
+          "translation_diff_vs_slam_m": vs_slam.tolist(),
+          "gate_m": DP_GATE_M})
+    return recs
+
+
+def run_dp_host_staged() -> list:
+    """Phase dp_host_staged's gang: phase slam_host_staged's run (the TUM
+    schedule cut to STORE_FRAMES frames, the host-staged store) on
+    GANG_RANKS ranks under ray DP (run_gang's gates).  Each rank checks
+    its bound cache lines against its host slots (``run_system``).
+    Returns the ranks' records; ``check_dp_host_staged`` reads them."""
+    cfg = tum_config("host_staged")
+    cfg["parallel"] = {"devices": GANG_RANKS}
+    root = os.path.abspath(os.path.join("output", "chip_smoke",
+                                        "dp_host_staged"))
+    shutil.rmtree(root, ignore_errors=True)
+    cfg["data"]["output"] = root
+    return run_gang("dp_host_staged", write_config(root + ".yaml", cfg),
+                    frames=STORE_FRAMES)
+
+
+def check_dp_host_staged(recs: list, host_rec: dict, host_est) -> dict:
+    """Phase dp_host_staged against phase slam_host_staged: every frame
+    within STORE_GATE_M, every rank holding the whole host store (its
+    bytes), one selection fetch per mapped frame, bound lines checked."""
+    import numpy as np
+
+    r0 = recs[0]
+    diff = translation_diff(np.asarray(r0["est"]), host_est)
+    hosts = [rec["host_store"] for rec in recs]
+    for r, (rec, h) in enumerate(zip(recs, hosts)):
+        if (rec["store_mode"] != "host_staged" or rec["plan"]["mode"] != "dp"
+                or h["host_bytes"] != host_rec["host_store_bytes"]
+                or h["selection_fetches"] != len(rec["map_frames"])
+                or not h["bound_lines"] > 0):
+            raise AssertionError(f"dp_host_staged: rank {r} {h}, plan "
+                                 f"{rec['plan']}")
+    if not diff.max() < STORE_GATE_M:
+        raise AssertionError(f"dp_host_staged: {diff} m from phase "
+                             f"slam_host_staged; gate {STORE_GATE_M} m")
+    out = {"phase": "dp_host_staged_summary", "ranks": GANG_RANKS,
+           "cut": f"{STORE_FRAMES} frames", "host_store": hosts,
+           "single_rank_host_store_bytes": host_rec["host_store_bytes"],
+           "ate_rmse_cm": r0["ate_rmse_cm"],
+           "launches": [r["launches"] for r in recs],
+           "max_translation_diff_vs_host_staged_m": float(diff.max()),
+           "translation_diff_vs_host_staged_m": diff.tolist(),
+           "gate_m": STORE_GATE_M}
+    emit(out)
+    return out
+
+
+def run_scaling(dp_recs: list, spmd_recs: list, components: dict,
+                sweep: dict, metrics_path: str) -> dict:
+    """Phase scaling: tools/validate_scaling.py's rows from phases dp and
+    dp_spmd (rank 0's mapping collectives over its mapping iterations):
+    plain DP's all-reduce 1.00 of the model's payload, ZeRO's reduction
+    the same bytes and its all-gather the atlases' padded rows;
+    tools/scaling_report.py from phases components and raysweep, phase
+    dp's link rate and phase slam's host ms per frame (every projected
+    fps finite and positive); tools/bench_pose_solver.py on GANG_RANKS
+    shards at POSE_SOLVER_BUDGET_S seconds a solver."""
+    import contextlib
+    import io
+
+    from myslam_torch.render.renderer import scene_from_cfg
+    from myslam_torch.tools import bench_pose_solver, scaling_report, \
+        validate_scaling
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    cfg = load_config(GANG_CONFIG, DEFAULT_CONFIG)
+    model = scaling_report.atlas_grad_bytes(cfg)
+    rows = []
+    for impl, recs in (("shardmap", dp_recs), ("spmd_zero", spmd_recs)):
+        r0 = recs[0]
+        counts = {k: v for k, v in r0["collectives"].items()
+                  if k in MAP_KINDS}
+        rows.append(validate_scaling.row(counts, sum(r0["map_iters"]),
+                                         r0["world"], r0["backend"], model,
+                                         impl))
+    plain, zero = rows
+    scene = scene_from_cfg(cfg)
+    padded = sum(4 * -(-lay.total_rows // GANG_RANKS) * GANG_RANKS
+                 * lay.c_dim for lay in (scene.sdf_layout,
+                                         scene.color_layout))
+    if (round(plain["ratio_vs_model"]["grad"], 2) != 1.0
+            or zero["bytes_per_iter"]["grad_rs"]
+            != plain["bytes_per_iter"]["grad"]
+            or zero["bytes_per_iter"]["zero_gather"] != padded):
+        raise AssertionError(f"validate_scaling rows {rows}")
+    link = scaling_report.link_gbps_of(dp_recs[0])
+    fixed = scaling_report.fixed_ms_of(metrics_path)
+    rep = scaling_report.report(cfg, components, sweep, link, fixed)
+    fps = [r["fps"] for lane in rep["lanes"].values()
+           for r in lane["dp_projection"] + lane["pipeline_projection"]]
+    if not all(math.isfinite(f) and f > 0 for f in fps):
+        raise AssertionError(f"scaling_report {rep}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        pose = bench_pose_solver.main(
+            ["--budget-s", str(POSE_SOLVER_BUDGET_S), "--shards",
+             str(GANG_RANKS), "--device", DEVICE])
+    for name, rec in pose["solvers"].items():
+        if not (rec["iters_done"] > 0
+                and math.isfinite(rec["err_final_m"])):
+            raise AssertionError(f"bench_pose_solver {name}: {rec}")
+    out = {"phase": "scaling", "model_grad_bytes": model,
+           "validate_scaling": rows, "scaling_report": rep,
+           "bench_pose_solver": {
+               "err_initial_m": pose["err_initial_m"],
+               "winner_at_equal_wall": pose["winner_at_equal_wall"],
+               "device": pose["device"], "shards": pose["shards"],
+               "solvers": {k: {n: v[n] for n in ("iters_done", "wall_s",
+                                                 "ms_per_iter",
+                                                 "err_final_m")}
+                           for k, v in pose["solvers"].items()}}}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2753,6 +2926,7 @@ def main(argv=None) -> int:
     run_replay(system.output)
     schur_case = check_schur_pullback(system)
     slam_est = system.estimates.copy()
+    slam_metrics = os.path.join(system.output, "metrics.jsonl")
     del system
     dp_recs = run_dp(slam, slam_est)
     # Phases kf_schur, kf_schur_every, kf_dp and dp_again run beside
@@ -2762,6 +2936,7 @@ def main(argv=None) -> int:
     kf_every = Background(run_kf_schur, slam, "kf_schur_every",
                           KF_SCHUR_EVERY, KF_SCHUR_EVERY_ATE_CM)
     kf_dp = Background(run_kf_dp)
+    spmd = Background(run_dp_spmd, slam, slam_est)
     try:
         resume = run_gang_resume(dp_recs, Background(
             run_gang, "dp_again",
@@ -2770,7 +2945,9 @@ def main(argv=None) -> int:
         kf.wait()
         kf_every.wait()
         kf_dp.wait()
+        spmd.wait()
     kf, kf_every, kf_dp = kf.join(), kf_every.join(), kf_dp.join()
+    spmd_recs = spmd.join()
     pipeline = run_pipeline(slam, slam_est)
     shards = run_map_shards()
     bigstep = run_bigstep()
@@ -2781,14 +2958,21 @@ def main(argv=None) -> int:
                            config=TUM_CONFIG)
     packed, packed_est = run_slam_packed()
     floor = run_packed_again(packed_est)
-    host = run_slam_host_staged(packed_est, floor)
-    evict = run_host_evict(floor)
+    host, host_est = run_slam_host_staged(packed_est, floor)
+    # Phase dp_host_staged's gang runs beside host_evict.
+    dp_host = Background(run_dp_host_staged)
+    try:
+        evict = run_host_evict(floor)
+    finally:
+        dp_host.wait()
+    dp_host = check_dp_host_staged(dp_host.join(), host, host_est)
     run_codec()
     replica = run_replica_layout(args.replica_runs, RESUME_GATE_M)
     tum_layout = run_tum_layout()
     vis = run_vis()
-    run_components()
-    run_raysweep()
+    components = run_components()
+    sweep = run_raysweep()
+    run_scaling(dp_recs, spmd_recs, components, sweep, slam_metrics)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2899,12 +3083,15 @@ def main(argv=None) -> int:
         "ms_schur_p_grad_only": schur_k2["ms"],
         "plain_ms_schur_p_grad_only": schur_k2["plain_ms"],
         "bound_ms_schur_p_grad_only": schur_k2["bound_ms"]})
-    # K1 and K2 launches per rank in this slice's phases.
+    # K1 and K2 launches per rank in the later gang phases.
     for k in kernels[:2]:
         k.update({f"launches_{name}": [la[k["name"]] for la in rec["launches"]]
                   for name, rec in (("pipeline", pipeline),
                                     ("map_shards", shards),
-                                    ("kf_dp", kf_dp))})
+                                    ("kf_dp", kf_dp),
+                                    ("dp_host_staged", dp_host))})
+        k["launches_dp_spmd"] = [r["launches"][k["name"]]
+                                 for r in spmd_recs]
     # The banded K1 / K2 (map shards): band 0's record at the mapping SDF
     # sample, both bands' ms, and their launches per rank in phase
     # map_shards (rank 0's as ``launches``).

@@ -98,11 +98,7 @@ class RowShardDraws:
         self.rank = int(rank)
 
     def _slice(self, full: torch.Tensor) -> torch.Tensor:
-        pad = self.rows * (self.rank + 1) - full.shape[0]
-        if pad > 0:
-            full = torch.cat([full, full.new_zeros(
-                (min(pad, self.rows),) + tuple(full.shape[1:]))])
-        return full[self.rank * self.rows:(self.rank + 1) * self.rows]
+        return rank_rows(full, self.rows, self.rank)
 
     def _global(self, shape) -> tuple:
         shape = tuple(shape)
@@ -116,6 +112,16 @@ class RowShardDraws:
 
     def randint(self, shape, low: int, high: int) -> torch.Tensor:
         return self._slice(self.base.randint(self._global(shape), low, high))
+
+
+def rank_rows(x: torch.Tensor, rows: int, rank: int) -> torch.Tensor:
+    """Rows [rank * rows, (rank + 1) * rows) of x, zero-padded past its
+    end: one rank's share of a batch split over the ranks."""
+    part = x[rank * rows:(rank + 1) * rows]
+    if part.shape[0] < rows:
+        part = torch.cat([part, part.new_zeros(
+            (rows - part.shape[0],) + tuple(x.shape[1:]))])
+    return part
 
 
 class RecordedDraws:

@@ -337,6 +337,27 @@ class KeyframeStore:
             lines[k] = ln
         return lines
 
+    def check_cache(self) -> int:
+        """Every cache line bound to a slot holds that slot's host
+        imagery byte for byte, and the slot maps back to it; returns the
+        count of bound lines (raises AssertionError on a mismatch)."""
+        bound = 0
+        for ln, s in enumerate(self.slot_of_line):
+            if s < 0:
+                continue
+            same = (self.line_of_slot[s] == ln
+                    and torch.equal(self.cache_colors[ln].cpu(),
+                                    self.colors_u8[s])
+                    and torch.equal(self.cache_depths[ln].cpu(),
+                                    self.depths_u16[s])
+                    and float(self.cache_inv_q[ln]) == float(
+                        self.depth_inv_q[s]))
+            if not same:
+                raise AssertionError(f"cache line {ln} does not hold slot "
+                                     f"{s}")
+            bound += 1
+        return bound
+
     def bind_scratch(self, slot: int) -> None:
         """Admit the scratch line's imagery as keyframe ``slot``'s cache
         entry (device-side copy, no re-upload at the next selection).

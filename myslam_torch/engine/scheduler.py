@@ -47,12 +47,19 @@ loop.  The modes:
     ranks and ``pipeline_map_devices`` (0: the rest) mapping ranks; in a
     process group of one rank, one process runs its schedule.
 
+Ray DP follows ``parallel.dp_impl``: ``shardmap`` (the default) or
+``spmd``, whose mapper draws what one device draws and, with
+``zero_opt``, row-shards the atlases' Adam (``engine/mapper.py``).  The
+host-staged store runs under ray DP: every rank holds the whole host
+store and line cache, selects the same window and stages the same
+lines, and its window mapper draws by the spmd rule.
+
 Rank 0 alone writes metrics.jsonl, the checkpoints, the meshes and the
 heartbeat (under the pipeline the map role's lead writes the
-checkpoints, the meshes and the mapped frames' records); the panels are
-off; resume is decided by rank 0 and broadcast.  ``dp_impl: spmd``
-(with ``zero_opt``) raises, as do the combinations the JAX package
-refuses.
+checkpoints, the meshes and the mapped frames' records); a checkpoint or
+mesh of the host-staged store reads rank 0's own host store.  The panels
+are off; resume is decided by rank 0 and broadcast.  The combinations
+the JAX package refuses raise.
 """
 
 from __future__ import annotations
@@ -103,14 +110,26 @@ def parallel_plan(cfg: dict, world: int) -> dict:
     ``world`` ranks, by the JAX package's rules (0 means every rank):
     {"mode": None, "dp", "kf", "kfdp", "map" or "pipeline"}, with "kf"
     and "dp" (the grid) for "kfdp" and "track" and "map" (the roles'
-    ranks) for "pipeline".
+    ranks) for "pipeline"; and what its mapper builders need of
+    ``dp_impl`` and ``zero_opt`` (``myslam_tpu/engine/scheduler.py:
+    225-258``):
 
-    Raises ValueError, naming the mode: for ``dp_impl: spmd``; for what
-    the JAX package refuses (the pipeline with any other mode,
-    map_shards with any other, the host-staged store with kf or map
-    sharding or the pipeline); and for a mode whose rank count is not
-    the process group's (one rank is one process and one device, so
-    ``devices: 2`` needs a group of 2, kf x dp K * D)."""
+      * "spmd": the ray-DP mapper draws the global batch, one device's
+        draws (``dp_impl: spmd`` under ray DP and on the pipeline's map
+        role of more than one rank; always for the host-staged store's
+        window mapper under ray DP, which the JAX package hands its ray
+        sharding in both impls);
+      * "zero_opt": the atlases' Adam is row-sharded (``dp_impl: spmd``
+        with ``zero_opt``, default true, under ray DP alone).
+
+    kf, kf x dp and map shards ignore ``dp_impl``, as the JAX package
+    does.  Raises ValueError, naming the mode or value: for a
+    ``dp_impl`` other than shardmap and spmd; for what the JAX package
+    refuses (the pipeline with any other mode, map_shards with any
+    other, the host-staged store with kf or map sharding or the
+    pipeline); and for a mode whose rank count is not the process
+    group's (one rank is one process and one device, so ``devices: 2``
+    needs a group of 2, kf x dp K * D)."""
     par = cfg.get("parallel", {}) or {}
 
     def n(name):
@@ -121,11 +140,12 @@ def parallel_plan(cfg: dict, world: int) -> dict:
         n("kf_shards")
     pipeline = bool(par.get("pipeline", False))
     dp_impl = str(par.get("dp_impl", "shardmap")).lower()
-    if dp_impl != "shardmap":
-        raise ValueError(
-            f"parallel.dp_impl: {dp_impl} (the SPMD ray DP and its "
-            "zero_opt) is not ported to myslam_torch yet; its ray DP is "
-            "the shardmap one: one gradient all-reduce per iteration")
+    if dp_impl not in ("shardmap", "spmd"):
+        raise ValueError(f"parallel.dp_impl: {dp_impl} is neither "
+                         "shardmap nor spmd")
+    spmd = dp_impl == "spmd"
+    host_staged = store_mode(
+        cfg.get("keyframe_device", "device")) == "host_staged"
     n_axes = sum(x > 1 for x in (n_dev, map_shards, kf_shards))
     if pipeline and n_axes:
         raise ValueError(
@@ -137,8 +157,7 @@ def parallel_plan(cfg: dict, world: int) -> dict:
             "parallel.map_shards composes with nothing; the supported "
             "combined mode is kf_shards x devices (keyframe-sharded BA "
             "with ray DP inside each kf row)")
-    if store_mode(cfg.get("keyframe_device", "device")) == "host_staged" \
-            and (kf_shards > 1 or map_shards > 1 or pipeline):
+    if host_staged and (kf_shards > 1 or map_shards > 1 or pipeline):
         raise ValueError(
             "keyframe_device: host_staged composes with ray DP only; use "
             "'packed' (what 'cpu' maps to) with kf or map sharding or the "
@@ -154,19 +173,22 @@ def parallel_plan(cfg: dict, world: int) -> dict:
         n_t = int(par.get("pipeline_track_devices", 1))
         n_m = int(par.get("pipeline_map_devices", 0))
         if world == 1 and n_t == 1 and n_m in (0, 1):
-            return {"mode": "pipeline", "track": 1, "map": 1}
+            return {"mode": "pipeline", "track": 1, "map": 1,
+                    "spmd": False, "zero_opt": False}
         if n_t < 1 or (n_m or world - n_t) < 1 \
                 or n_t + (n_m or world - n_t) != world:
             raise needs(f"parallel.pipeline ({n_t} tracking rank(s), "
                         f"{n_m or 'the rest'} mapping)",
                         max(n_t, 1) + max(n_m, 1))
-        return {"mode": "pipeline", "track": n_t,
-                "map": n_m or world - n_t}
+        n_map = n_m or world - n_t
+        return {"mode": "pipeline", "track": n_t, "map": n_map,
+                "spmd": spmd and n_map > 1, "zero_opt": False}
     if n_dev > 1 and kf_shards > 1:
         if n_dev * kf_shards != world:
             raise needs(f"parallel.kf_shards x parallel.devices "
                         f"({kf_shards} x {n_dev})", kf_shards * n_dev)
-        return {"mode": "kfdp", "kf": kf_shards, "dp": n_dev}
+        return {"mode": "kfdp", "kf": kf_shards, "dp": n_dev,
+                "spmd": False, "zero_opt": False}
     mode, ranks, what = ((("dp", n_dev, "parallel.devices") if n_dev > 1
                           else ("kf", kf_shards, "parallel.kf_shards")
                           if kf_shards > 1
@@ -175,7 +197,9 @@ def parallel_plan(cfg: dict, world: int) -> dict:
     if ranks != world:
         raise needs(f"{what} ({mode or 'no parallel mode'}, {ranks} "
                     "rank(s))", ranks)
-    return {"mode": mode}
+    dp = mode == "dp"
+    return {"mode": mode, "spmd": dp and (spmd or host_staged),
+            "zero_opt": dp and spmd and bool(par.get("zero_opt", True))}
 
 
 class SLAMSystem:
@@ -300,11 +324,6 @@ class SLAMSystem:
         self.keyframe_device = str(
             cfg.get("keyframe_device", "device")).lower()
         mode = store_mode(self.keyframe_device)
-        if mode == "host_staged" and self.n_proc > 1:
-            raise ValueError(
-                "keyframe_device: host_staged is single-process; use "
-                "'packed' (what 'cpu' maps to) with parallel.devices or "
-                "parallel.kf_shards")
         self.store = KeyframeStore(
             capacity, self.cam, self.device, mode=mode,
             shard=((self.rank // self.dp_cols, self.kf_rows)
@@ -342,8 +361,10 @@ class SLAMSystem:
         # the store has depth holes (see _map_frame).
         if self.store.host_mode:
             self._mappers = {
-                imp: make_window_frame_mapper(cfg, self.scene, self.cam,
-                                              self.w_max, importance=imp)
+                imp: make_window_frame_mapper(
+                    cfg, self.scene, self.cam, self.w_max, importance=imp,
+                    sharded=self.parallel == "dp",
+                    zero_opt=self.plan["zero_opt"])
                 for imp in (False, True)}
         elif self.kf_rows > 1:
             from myslam_torch.parallel.distributed_ba import \
@@ -377,7 +398,8 @@ class SLAMSystem:
                     packed=self.store.packed,
                     sharded=self.parallel == "dp" or (
                         self.parallel == "pipeline"
-                        and self.plan["map"] > 1))
+                        and self.plan["map"] > 1),
+                    spmd=self.plan["spmd"], zero_opt=self.plan["zero_opt"])
                 for imp in (False, True)}
         # Map shards: this rank's banded map, the one mapping optimizes,
         # derived from the replicated map when missing (at the start and
@@ -726,7 +748,8 @@ class SLAMSystem:
         if done:
             self.bookkeeping.append({"frame": idx, **done})
             if self.verbose:
-                print(f"frame {idx}: {done}")
+                # One write per line: a gang's ranks share the stream.
+                print(f"frame {idx}: {done}", flush=True)
 
     def _touch_heartbeat(self, idx: int) -> None:
         """Rewrite ``<output>/HEARTBEAT`` (the frame and the time): every
@@ -901,7 +924,7 @@ class SLAMSystem:
                 self.est_track.copy_(torch.from_numpy(track_est))
             pipe.unpack_map(torch.from_numpy(snapshot), self.track_map)
         if self.verbose:
-            print(f"Resumed from {path} at frame {start}")
+            print(f"Resumed from {path} at frame {start}", flush=True)
         return start
 
     @property

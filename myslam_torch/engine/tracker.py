@@ -31,22 +31,12 @@ from myslam_torch.core.losses import color_loss, depth_loss, \
     global_weighted_loss, masked_median, sdf_losses, slam_terms
 from myslam_torch.core.quaternion import cam_pose_to_matrix, \
     matrix_to_cam_pose
-from myslam_torch.core.sampling import RowShardDraws
+from myslam_torch.core.sampling import RowShardDraws, rank_rows
 from myslam_torch.engine.camera import Camera
 from myslam_torch.models.planes import MapState
 from myslam_torch.ops.plane_sample import pack_quad
 from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import SceneGeometry, render_rays
-
-
-def _rank_rows(x: torch.Tensor, rows: int, rank: int) -> torch.Tensor:
-    """Rows [rank * rows, (rank + 1) * rows) of x, zero-padded past its
-    end."""
-    part = x[rank * rows:(rank + 1) * rows]
-    if part.shape[0] < rows:
-        part = torch.cat([part, part.new_zeros(
-            (rows - part.shape[0],) + tuple(x.shape[1:]))])
-    return part
 
 
 def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
@@ -77,7 +67,7 @@ def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
             rank, world, n = (distributed.rank(), distributed.world(),
                               i.shape[0])
             rows = -(-n // world)
-            i, j, px_color, px_depth = (_rank_rows(x, rows, rank) for x in
+            i, j, px_color, px_depth = (rank_rows(x, rows, rank) for x in
                                         (i, j, px_color, px_depth))
             valid = (rank * rows + torch.arange(rows, device=i.device)) < n
             draws = RowShardDraws(draws, n, rank, world)

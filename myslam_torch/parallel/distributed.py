@@ -25,7 +25,10 @@ process group.  ``global_rank()`` is the rank in the whole group.
 
 Every collective goes through the functions below, which count its calls,
 bytes and seconds by kind in ``COUNTS`` (``reset_counts``): ``grad`` for
-the one flat gradient all-reduce per mapping step, ``loss`` for the
+the one flat gradient all-reduce per mapping step, ``grad_rs`` and
+``zero_gather`` for the row-sharded Adam's (``dp_impl: spmd`` with
+``zero_opt``) gradient reduction and the all-gather of the updated atlas
+rows (``reduce_grads_rows``, ``all_gather_rows``), ``loss`` for the
 mapping losses' masked (sum, count) pairs, ``track_median``,
 ``track_loss`` and ``track_grad`` for tracking's outlier threshold,
 losses and pose gradient, ``schur`` for the reduced pose system,
@@ -41,8 +44,11 @@ all-gather of the bands after a mapped frame); for the pipeline
 seconds from the device's last queued work to the call's return; for a
 point-to-point transfer, the seconds its ``wait`` blocked.
 
-gloo, the backend of ranks that share a card, has no ``reduce_scatter``:
-nothing here needs one.
+On gloo, the backend of ranks that share a card, the row-sharded Adam's
+reduction is the flat all-reduce of plain DP and a local slice (gloo
+need not have a reduce-scatter, and the summed gradient is then the one
+the replicated Adam takes); NCCL's ``reduce_scatter_tensor`` on cards of
+their own.
 """
 
 from __future__ import annotations
@@ -305,16 +311,119 @@ def all_reduce_grads(params) -> int:
     params = list(params)
     if world() == 1:
         return 0
-    flat = torch.cat([(p.grad if p.grad is not None
+    flat = _flat_grads(params)
+    all_reduce_(flat, "grad")
+    for p, g in zip(params, _split(flat, params)):
+        p.grad = g
+    return flat.numel() * flat.element_size()
+
+
+def _flat_grads(params) -> torch.Tensor:
+    """The gradients of ``params`` as one flat float32 buffer (zeros for
+    a parameter without one)."""
+    return torch.cat([(p.grad if p.grad is not None
                        else torch.zeros_like(p)).reshape(-1)
                       for p in params])
-    all_reduce_(flat, "grad")
-    off = 0
-    for p in params:
+
+
+def _split(flat: torch.Tensor, like) -> list:
+    """``flat`` cut into views shaped as the tensors of ``like``."""
+    out, off = [], 0
+    for p in like:
         n = p.numel()
-        p.grad = flat[off:off + n].view_as(p)
+        out.append(flat[off:off + n].view_as(p))
         off += n
-    return flat.numel() * flat.element_size()
+    return out
+
+
+def reduce_grads_rows(params, sharded) -> list:
+    """The gradients of ``params`` summed over the ranks, for the
+    row-sharded Adam: whole for a replicated parameter, this rank's
+    block of rows (``host_shard``) for one marked in ``sharded``.  gloo:
+    one all-reduce of the whole flat gradient (kind ``grad_rs``, the
+    buffer and bytes of ``all_reduce_grads``), then a local slice.
+    NCCL: one ``reduce_scatter_tensor`` of the sharded parameters' row
+    blocks (``grad_rs``) and one all-reduce of the replicated ones
+    (``grad``).  Returns the gradients in the order of ``params``."""
+    params = list(params)
+    if world() == 1:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in params]
+    blocks = [host_shard(p.shape[0]) if s else None
+              for p, s in zip(params, sharded)]
+    if backend() != "nccl":
+        flat = _flat_grads(params)
+        t0 = _start(flat)
+        dist.all_reduce(flat, group=_pg())
+        _count("grad_rs", flat.numel() * flat.element_size(),
+               time.perf_counter() - t0)
+        return [g if b is None else g[b[0]:b[1]]
+                for g, b in zip(_split(flat, params), blocks)]
+    return _reduce_scatter_rows(params, sharded)
+
+
+def _reduce_scatter_rows(params, sharded) -> list:
+    """NCCL's side of ``reduce_grads_rows``: rank r's segment of the
+    input holds rank r's row block of every sharded gradient, padded to
+    ``ceil(rows / world)`` rows."""
+    n = world()
+    shard = [p for p, s in zip(params, sharded) if s]
+    rest = [p for p, s in zip(params, sharded) if not s]
+    per = [-(-p.shape[0] // n) for p in shard]
+    seg = sum(k * p[0].numel() for k, p in zip(per, shard))
+    buf = torch.zeros((n, seg), dtype=torch.float32,
+                      device=shard[0].device)
+    off = 0
+    for k, p in zip(per, shard):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        row = p[0].numel()
+        for r in range(n):
+            part = g[r * k:(r + 1) * k].reshape(-1)
+            buf[r, off:off + part.numel()] = part
+        off += k * row
+    out = torch.empty((seg,), dtype=torch.float32, device=buf.device)
+    t0 = _start(buf)
+    dist.reduce_scatter_tensor(out, buf.reshape(-1), group=_pg())
+    _count("grad_rs", buf.numel() * buf.element_size(),
+           time.perf_counter() - t0)
+    mine, off = [], 0
+    for k, p in zip(per, shard):
+        lo, hi = host_shard(p.shape[0])
+        row = p[0].numel()
+        mine.append(out[off:off + (hi - lo) * row].view(
+            (hi - lo,) + tuple(p.shape[1:])))
+        off += k * row
+    summed = iter(_split(all_reduce_(_flat_grads(rest), "grad"), rest)
+                  if rest else [])
+    mine = iter(mine)
+    return [next(mine) if s else next(summed) for s in sharded]
+
+
+def all_gather_rows(fulls, blocks) -> int:
+    """Every rank's updated row block (``blocks``: this rank's, each
+    ``host_shard`` rows of the matching tensor of ``fulls``) written into
+    the full tensors on every rank, in place, by one all-gather (kind
+    ``zero_gather``; each block padded to ``ceil(rows / world)`` rows).
+    Returns the bytes gathered."""
+    n = world()
+    if n == 1 or not fulls:
+        return 0
+    per = [-(-f.shape[0] // n) for f in fulls]
+    mine = torch.cat([torch.cat([b.reshape(-1), b.new_zeros(
+        (k * f[0].numel() - b.numel(),))]) for f, b, k in
+        zip(fulls, blocks, per)])
+    parts = all_gather(mine, "zero_gather")
+    with torch.no_grad():
+        off = 0
+        for f, k in zip(fulls, per):
+            row = f[0].numel()
+            for r in range(n):
+                lo, hi = min(r * k, f.shape[0]), min((r + 1) * k,
+                                                    f.shape[0])
+                f[lo:hi].copy_(parts[r, off:off + (hi - lo) * row].view(
+                    (hi - lo,) + tuple(f.shape[1:])))
+            off += k * row
+    return parts.numel() * parts.element_size()
 
 
 def comm_device() -> torch.device:

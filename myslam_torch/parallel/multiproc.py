@@ -25,7 +25,13 @@ built once, before the gang starts.  Each rank runs one of:
   * ``run_bigstep(mode)``: mapping chunks across the gang at the Replica
     operating point (680x1200 imagery, 4,000 rays, 15-iteration chunks,
     room-scale atlases, an 8-slot window): seconds per chunk and the
-    peak RSS.
+    peak RSS;
+  * ``run_scaling_window()``: one mapping window of ``frames``
+    iterations, ray DP with the replicated Adam and then under ``dp_impl:
+    spmd`` with the row-sharded one, each one's collectives by kind
+    (``tools/validate_scaling.py``);
+  * ``run_pose_solver()``: ``tools/bench_pose_solver.py``'s adam and
+    schur solvers at equal wall time over the gang's keyframe shards.
 
 ``product_cfg`` and ``run_product`` take the modes ``dp``, ``kf``,
 ``kfdp`` (2 kf rows x the rest as dp columns), ``map`` (banded map
@@ -448,6 +454,63 @@ def run_bigstep(mode: str = "dp", frames: int = 3, seed: int = 0,
             "losses": np.concatenate(losses)}
 
 
+def run_scaling_window(config: str | None = None, iters: int = 2,
+                       seed: int = 0, device=None, log=print) -> dict:
+    """``iters`` mapping iterations of one window on every rank of the
+    gang (``make_mapper``, no importance branch), ray DP with the
+    replicated Adam (``plain``) and then with the ``dp_impl: spmd`` draws
+    and the row-sharded Adam (``zero``), from the same map: each one's
+    collectives by kind (``distributed.COUNTS``).  The window is
+    ``profile_components``': ``mapping_window_size`` keyframes of
+    constant imagery, every pose at the bound's center, the oldest
+    frozen.  ``config``: default ``configs/Synthetic/room.yaml``."""
+    import torch
+
+    from myslam_torch.core.quaternion import matrix_to_cam_pose
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.engine.mapper import make_mapper
+    from myslam_torch.models.config import get_model
+    from myslam_torch.models.planes import init_map_state
+    from myslam_torch.parallel import distributed
+    from myslam_torch.render.renderer import scene_from_cfg
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    dev = distributed.rank_device(distributed.rank(), device)
+    cfg = load_config(config or os.path.join(
+        _REPO, "configs", "Synthetic", "room.yaml"), DEFAULT_CONFIG)
+    cam = Camera.from_cfg(cfg)
+    scene = scene_from_cfg(cfg)
+    W = int(cfg["mapping"]["mapping_window_size"])
+    c2ws = torch.eye(4, device=dev).repeat(W, 1, 1)
+    c2ws[:, :3, 3] = scene.bound_tensor(dev).mean(dim=1)
+    poses = matrix_to_cam_pose(c2ws)
+    pose_mask = torch.ones((W,), device=dev)
+    pose_mask[0] = 0.0
+    kf_colors = torch.full((W, cam.H, cam.W, 3), 0.5, dtype=torch.float16,
+                           device=dev)
+    kf_depths = torch.full((W, cam.H, cam.W), 1.5, device=dev)
+    out = {"world": distributed.world(), "backend": distributed.backend(),
+           "iters": iters, "window": W}
+    for name, spmd in (("plain", False), ("zero", True)):
+        gen = torch.Generator().manual_seed(seed)
+        ms = init_map_state(gen, scene.sdf_layout, scene.color_layout,
+                            get_model(cfg, gen), device=dev)
+        step = make_mapper(cfg, scene, cam, importance=False, sharded=True,
+                           spmd=spmd, zero_opt=spmd)
+        distributed.reset_counts()
+        _, losses = step(ms, poses, pose_mask, torch.arange(W, device=dev),
+                         W, kf_colors, kf_depths, TorchDraws(seed, dev),
+                         iters=iters, lr_factor=1.0)
+        if not torch.isfinite(losses).all():
+            raise RuntimeError(f"scaling[{name}]: non-finite loss")
+        out[name] = {k: dict(v) for k, v in distributed.COUNTS.items()}
+    out["atlas_bytes"] = _atlas_bytes(ms)
+    log(f"scaling window over {out['world']} rank(s): {out['plain']}, "
+        f"{out['zero']}")
+    return out
+
+
 def run_system(config: str, seed: int = 0, device=None,
                frames: int | None = None, log=print) -> dict:
     """SLAMSystem's loop on a config file over the gang, then this rank's
@@ -458,9 +521,14 @@ def run_system(config: str, seed: int = 0, device=None,
     launches, the loop's peak device memory, the keyframe store's imagery
     bytes on this rank, and the device bytes above what it held that this
     rank takes for a checkpoint of the last frame, written after the
-    loop."""
+    loop; the bytes of Adam's atlas moments on this rank in the last
+    mapped frame (``engine/mapper.ADAM_BYTES``: the row-sharded Adam's);
+    and for the host-staged store its host bytes, selection fetches,
+    cache misses and bound lines, each line checked against its host
+    slot (``KeyframeStore.check_cache``)."""
     import torch
 
+    from myslam_torch.engine import mapper
     from myslam_torch.engine.scheduler import SLAMSystem
     from myslam_torch.ops import cuda_sample
     from myslam_torch.parallel import distributed, distributed_ba
@@ -475,10 +543,14 @@ def run_system(config: str, seed: int = 0, device=None,
                                                      device))
     if slam.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(slam.device)
-    grad_calls = []  # gradient all-reduces by the end of each mapped frame
+    # Gradient reductions by the end of each mapped frame (the row-sharded
+    # Adam's grad_rs in place of grad).
+    grad_calls = []
 
     def mapped(system, idx):
-        grad_calls.append(distributed.COUNTS.get("grad", {}).get("calls", 0))
+        counts = distributed.COUNTS
+        grad_calls.append(counts.get("grad_rs", counts.get("grad", {}))
+                          .get("calls", 0))
 
     slam.on_map_done = mapped
     # Per mapped frame, the farthest that mapping moved a keyframe already
@@ -526,6 +598,7 @@ def run_system(config: str, seed: int = 0, device=None,
         slam.on_map_done = mapped_digest
     cuda_sample.reset_launches()
     distributed.reset_counts()
+    mapper.ADAM_BYTES.update(atlas_moments=0, atlas_moments_replicated=0)
     distributed.TRACE = []
     for k in distributed_ba.SCHUR_LAUNCHES:
         distributed_ba.SCHUR_LAUNCHES[k] = 0
@@ -549,6 +622,15 @@ def run_system(config: str, seed: int = 0, device=None,
     ckpt_bytes = (torch.cuda.max_memory_allocated(slam.device) - held
                   if cuda else None)
     log_recs = slam.frame_log
+    st = slam.store
+    host = None
+    if st.host_mode:
+        host = {"host_bytes": sum(t.numel() * t.element_size() for t in
+                                  (st.colors_u8, st.depths_u16)),
+                "selection_fetches": slam.selection_fetches,
+                "cache_lines": st.cache_lines,
+                "cache_misses": st.cache_misses,
+                "bound_lines": st.check_cache()}
     out = {
         "rank": slam.rank, "world": slam.n_proc, "backend":
         distributed.backend(), "device": str(slam.device),
@@ -574,6 +656,9 @@ def run_system(config: str, seed: int = 0, device=None,
         "store_capacity": slam.store.capacity,
         "store_local_capacity": slam.store.local_capacity,
         "store_imagery_bytes": slam.store.imagery_bytes(),
+        "host_store": host,
+        "plan": slam.plan,
+        "adam_bytes": dict(mapper.ADAM_BYTES),
         "peak_mem_gb": peak / 1e9 if cuda else None,
         "ckpt_extra_mem_bytes": ckpt_bytes,
         "frame_start_s": (np.asarray(slam.frame_start_wall)
@@ -633,7 +718,7 @@ def worker_main(argv=None) -> None:
                    help="cpu, or a CUDA device (default: the rank's GPU)")
     p.add_argument("--loop", default="mini",
                    choices=("mini", "product", "system", "validate",
-                            "bigstep"))
+                            "bigstep", "scaling", "pose_solver"))
     p.add_argument("--mode", default="dp",
                    choices=("dp", "kf", "kfdp", "map", "pipeline"))
     p.add_argument("--frames", type=int, default=None,
@@ -669,6 +754,14 @@ def worker_main(argv=None) -> None:
             out = run_validate(args.mode, args.frames or 4, args.seed, dev)
         elif args.loop == "bigstep":
             out = run_bigstep(args.mode, args.frames or 3, args.seed, dev)
+        elif args.loop == "scaling":
+            out = run_scaling_window(args.config, args.frames or 2,
+                                     args.seed, dev)
+        elif args.loop == "pose_solver":
+            from myslam_torch.tools.bench_pose_solver import run_pose_solver
+
+            out = run_pose_solver(json.loads(args.overrides), args.seed,
+                                  dev)
         else:
             out = run_system(args.config, args.seed, dev, args.frames)
         with open(os.path.join(args.out, f"rank{args.procid}.json"),
@@ -735,12 +828,13 @@ def launch(nproc: int, mode: str = "dp", frames: int | None = None,
            device=None, config: str | None = None,
            replay: str | None = None, size=(96, 128),
            overrides: dict | None = None) -> list[dict]:
-    """Run ``loop`` ("mini", "product", "system", "validate" or
-    "bigstep") on a gang of ``nproc`` ranks; returns each rank's result
-    in rank order.  ``frames`` None: the loop's own count (6, 12, the
-    config's, 4, 3).  Raises
-    with the failing rank's output when a rank exits abnormally or the
-    gang outlives ``timeout`` seconds."""
+    """Run ``loop`` ("mini", "product", "system", "validate", "bigstep",
+    "scaling" or "pose_solver") on a gang of ``nproc`` ranks; returns
+    each rank's result in rank order.  ``frames`` None: the loop's own
+    count (6, 12, the config's, 4, 3, 2 iterations; unused by
+    "pose_solver", whose settings ride in ``overrides``).  Raises with
+    the failing rank's output when a rank exits abnormally or the gang
+    outlives ``timeout`` seconds."""
     prebuild(device)
     out_dir = tempfile.mkdtemp(prefix="gang_")
     coord = f"127.0.0.1:{free_port()}"

@@ -25,6 +25,14 @@ of constant imagery with every pose at the bound's center:
               samples, top-K or all, and the compositing)
   mlp_only    both decoders on pre-sampled corner features
   composite   sdf2alpha, compositing and losses on fixed fields
+  adam        the mapping step's dense Adam update of the atlases,
+              decoders and window poses (``make_map_optimizer``), on
+              full_grad's gradients: what ray DP replicates on every rank
+              and ``zero_opt`` shards
+  track_frame one frame's tracking (``tracking.iters`` iterations of the
+              loss, the pose gradient and Adam over ``tracking.pixels``
+              pixels against the frozen quads; ``track_iter_ms`` is its
+              ms over the iterations)
 
 The JAX tool timed each component as a scan inside one program.  Here
 each reports, per call: ``ms``, CUDA events over ``--iters`` calls made
@@ -45,7 +53,7 @@ import os
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 COMPONENTS = ("full_grad", "forward", "raygen", "sdf_field", "rgb_field",
-              "mlp_only", "composite")
+              "mlp_only", "composite", "adam", "track_frame")
 
 
 def main(argv=None) -> dict:
@@ -68,7 +76,9 @@ def main(argv=None) -> dict:
     from myslam_torch.core.sampling import TorchDraws
     from myslam_torch.engine.camera import Camera
     from myslam_torch.engine.mapper import _build_core, _build_stages, \
-        map_quad_dtype
+        make_map_optimizer, map_quad_dtype
+    from myslam_torch.engine.tracker import make_track_core, \
+        pack_tracking_quads
     from myslam_torch.models.config import get_model
     from myslam_torch.models.decoders import decode_rgb_corners, \
         decode_sdf_corners
@@ -163,6 +173,29 @@ def main(argv=None) -> dict:
         depth, color, _ = composite(alpha, z_fix, rgb_fix)
         return losses(sdf_fix, z_fix, depth, color, d_fix, c_fix, mask_fix)
 
+    # The Adam step on one iteration's gradients (set once; each call
+    # updates the map again).
+    opt = make_map_optimizer(cfg, ms, poses, 1.0)
+    grads = torch.autograd.grad(loss(), params)
+    for p, g in zip(params, grads):
+        p.grad = g
+
+    t = cfg["tracking"]
+    t_iters, n_px = int(t["iters"]), int(t["pixels"])
+    track = make_track_core(cfg, scene, cam)
+    quads = pack_tracking_quads(ms, scene,
+                                bool(t.get("map_bf16", True)))
+    px_i = torch.randint(0, cam.W, (t_iters, n_px), generator=gen).to(dev)
+    px_j = torch.randint(0, cam.H, (t_iters, n_px), generator=gen).to(dev)
+    px_color = torch.full((t_iters, n_px, 3), 128, dtype=torch.uint8,
+                          device=dev)
+    px_depth = torch.full((t_iters, n_px), 1.5, device=dev)
+    pose0 = poses[1].detach()
+
+    def track_frame():
+        return track(ms, quads, pose0, px_i, px_j, px_color, px_depth,
+                     draws)
+
     no_grad = torch.no_grad()
     fns = {
         "full_grad": lambda: torch.autograd.grad(loss(), params),
@@ -172,6 +205,8 @@ def main(argv=None) -> dict:
         "rgb_field": no_grad(rgb_field),
         "mlp_only": no_grad(mlp_only),
         "composite": no_grad(composite_loss),
+        "adam": opt.step,
+        "track_frame": track_frame,
     }
     report = {"device": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
@@ -190,6 +225,8 @@ def main(argv=None) -> dict:
     report["backward_ms"] = comp["full_grad"]["ms"] - comp["forward"]["ms"]
     report["fwd_unaccounted_ms"] = (comp["forward"]["ms"]
                                     - comp["rgb_field"]["ms"])
+    report["track_iters"] = t_iters
+    report["track_iter_ms"] = comp["track_frame"]["ms"] / t_iters
     print(json.dumps(report))
     return report
 

@@ -3,12 +3,13 @@
   * ``run_torch.py --device cpu`` completes a tiny synthetic run, reports
     a finite ATE and writes the final mesh and its culled copy;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
-  * no module of ``myslam_torch/`` (``parallel/`` included, and the
-    tests' gang harness ``tests/torch_gang.py``), nor ``chip_smoke.py``,
-    ``run_torch.py``, ``bench_torch.py`` or ``visualizer_torch.py``,
-    imports JAX, the JAX package, OpenCV, Pillow, matplotlib or open3d
-    (checked on the sources' import statements): the port reads and
-    writes its images with its own codec and draws in numpy.  The only
+  * no module of ``myslam_torch/`` (``parallel/`` and the scaling tools
+    included, and the tests' gang harness ``tests/torch_gang.py``), nor
+    ``chip_smoke.py``, ``run_torch.py``, ``bench_torch.py`` or
+    ``visualizer_torch.py``, imports JAX, the JAX package, OpenCV,
+    Pillow, matplotlib or open3d (checked on the sources' import
+    statements): the port reads and writes its images with its own codec
+    and draws in numpy.  The only
     exception: ``utils/frontend.py``'s open3d and matplotlib backends
     import their library inside the backend's function.
 """
@@ -65,6 +66,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     two interactive backends."""
     sources = _port_sources()
     assert len(sources) > 20
+    # The scaling tools are among them.
+    for tool in ("bench_pose_solver", "scaling_report", "validate_scaling"):
+        assert os.path.join(REPO, "myslam_torch", "tools",
+                            f"{tool}.py") in sources
     bad, lazy = [], set()
     for path in sources:
         rel = os.path.relpath(path, REPO)

@@ -3,9 +3,9 @@ devices: D}``) on 4 gloo ranks against the JAX package's composed
 ``('kf', 'dp')`` mesh on 4 of the virtual CPU devices, and the parallel
 settings the port refuses.
 
-A 4-rank gang runs ``make_kf_frame_mapper(dp=2)`` on a 2 x 2 grid (rank
-r the kf row r // 2 and dp column r % 2), once per pose solver (adam,
-schur), against JAX's ``make_kf_frame_mapper`` on the 2 x 2 mesh
+One 4-rank gang runs ``make_kf_frame_mapper(dp=2)`` on a 2 x 2 grid
+(rank r the kf row r // 2 and dp column r % 2), once per pose solver
+(adam, schur), against JAX's ``make_kf_frame_mapper`` on the 2 x 2 mesh
 (``distributed_ba.py:378-725``): frame 4 mapped with joint poses on a
 trained map, a 6-slot store of 3 slots per kf row, admission into slot
 4, which row 1 holds.  Every rank replays the selector's draws and per
@@ -42,7 +42,7 @@ from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
 from test_torch_parallel import LOSS_WEIGHTS, assert_map, fresh, map_np, \
     spec_of
 from test_torch_slice import Pair, render_draws, selector_draws, small_cfg
-from torch_gang import kfdp_frame_case, run_ranks
+from torch_gang import each, kfdp_frame_case, run_ranks
 
 torch.set_num_threads(2)  # several test workers share the CPU
 
@@ -122,39 +122,62 @@ def trained(pair, colors, depths, kf_est, iters=60):
         decoder=jax.tree_util.tree_map(jnp.asarray, tree["decoder"]))
 
 
-@pytest.mark.parametrize("solver, iters", [("adam", 3), ("schur", 1)])
-def test_kf_dp_frame_mapper_matches_jax(solver, iters):
-    """The composed frame mapper with pose solver ``solver`` on one
-    4-rank gang against JAX's on the 2 x 2 mesh."""
-    cfg = small_cfg(perturb=True)
-    pair = Pair(cfg)
-    cam = pair.cam
-    rng = np.random.default_rng(2)
-    colors = np.zeros((CAP, cam.H, cam.W, 3), np.float16)
-    depths = np.zeros((CAP, cam.H, cam.W), np.float32)
-    kf_est = np.tile(np.eye(4, dtype=np.float32), (CAP, 1, 1))
-    for s in range(4):
-        c, d, gt = pair.dataset.get_frame(s)
-        colors[s], depths[s], kf_est[s] = c, d, gt
-        kf_est[s, :3, 3] += rng.normal(scale=0.004, size=3)
-    kf_gt = kf_est.copy()
-    pkt = pair.packet(4, need_full=True)
-    est = np.tile(np.eye(4, dtype=np.float32), (5, 1, 1))
-    est[:4] = kf_est[:4]
-    est[4] = pkt.gt_c2w
-    est[4, :3, 3] += 0.004
-    trained(pair, colors, depths, kf_est)
-    jms, ref, draws = jax_case(pair, cfg,
-                               (colors, depths, kf_est, kf_gt, est, pkt),
-                               solver, iters, jax.random.PRNGKey(12))
+CASES = (("adam", 3), ("schur", 1))
+
+
+@pytest.fixture(scope="module")
+def gang():
+    """Both solvers: JAX's composed mapper on the 2 x 2 mesh and the
+    port's on one 4-rank gang, from one trained map.  Returns, by
+    solver, JAX's map and records, the ranks' outputs and the frame's
+    starting trajectory."""
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(jps, "ONEHOT_MAX_ROWS", 0)
+    try:
+        cfg = small_cfg(perturb=True)
+        pair = Pair(cfg)
+        cam = pair.cam
+        rng = np.random.default_rng(2)
+        colors = np.zeros((CAP, cam.H, cam.W, 3), np.float16)
+        depths = np.zeros((CAP, cam.H, cam.W), np.float32)
+        kf_est = np.tile(np.eye(4, dtype=np.float32), (CAP, 1, 1))
+        for s in range(4):
+            c, d, gt = pair.dataset.get_frame(s)
+            colors[s], depths[s], kf_est[s] = c, d, gt
+            kf_est[s, :3, 3] += rng.normal(scale=0.004, size=3)
+        kf_gt = kf_est.copy()
+        pkt = pair.packet(4, need_full=True)
+        est = np.tile(np.eye(4, dtype=np.float32), (5, 1, 1))
+        est[:4] = kf_est[:4]
+        est[4] = pkt.gt_c2w
+        est[4, :3, 3] += 0.004
+        trained(pair, colors, depths, kf_est)
+        jax_side = {solver: jax_case(
+            pair, cfg, (colors, depths, kf_est, kf_gt, est, pkt), solver,
+            iters, jax.random.PRNGKey(12)) for solver, iters in CASES}
+    finally:
+        monkey.undo()
     store_np = {"colors": colors, "depths": depths, "est_c2w": kf_est,
                 "gt_c2w": kf_gt, "count": 4, "est": est}
     packet = {"color_u8": pkt.color_u8,
               "depth_u16": pkt.depth_u16.astype(np.int64),
               "inv_q": pkt.depth_inv_q, "gt_c2w": pkt.gt_c2w, "idx": 4}
-    ranks = run_ranks(kfdp_frame_case, K * D, scaled(cfg, FACTOR),
-                      spec_of(pair), map_np(pair), store_np, packet, draws,
-                      iters, solver, (K, D), CAP, WINDOW, timeout=240)
+    ranks = run_ranks(each, K * D, [
+        (kfdp_frame_case, (scaled(cfg, FACTOR), spec_of(pair), map_np(pair),
+                           store_np, packet, jax_side[solver][2], iters,
+                           solver, (K, D), CAP, WINDOW))
+        for solver, iters in CASES], timeout=240)
+    return {solver: {"jms": jax_side[solver][0], "ref": jax_side[solver][1],
+                     "ranks": [rank[k] for rank in ranks], "est": est}
+            for k, (solver, _) in enumerate(CASES)}
+
+
+@pytest.mark.parametrize("solver, iters", CASES)
+def test_kf_dp_frame_mapper_matches_jax(solver, iters, gang):
+    """The composed frame mapper with pose solver ``solver`` on a 4-rank
+    gang (one for both solvers) against JAX's on the 2 x 2 mesh."""
+    jms, ref, ranks, est = (gang[solver][k] for k in ("jms", "ref",
+                                                      "ranks", "est"))
     for r, out in enumerate(ranks):
         assert out["left"] == 0
         assert out["counts"]["grad"]["calls"] == iters
@@ -185,7 +208,7 @@ REFUSED = [
     ({"pipeline": True, "pipeline_track_devices": 2}, None,
      "parallel.pipeline (2 tracking rank(s), the rest mapping) needs a "
      "process group of 3"),
-    ({"dp_impl": "spmd", "zero_opt": True}, None, "parallel.dp_impl: spmd"),
+    ({"dp_impl": "spmd", "zero_opt": True}, None, None),
     ({"kf_shards": 2}, "host_staged", "host_staged composes with ray DP"),
     ({"map_shards": 2}, "host_staged", "host_staged composes with ray DP"),
     ({"pipeline": True}, "host_staged", "host_staged composes with ray DP"),
@@ -195,13 +218,20 @@ REFUSED = [
 @pytest.mark.parametrize("parallel, store, message", REFUSED)
 def test_refuses_what_jax_refuses(parallel, store, message):
     """Each combination the JAX package's scheduler refuses
-    (``scheduler.py:179-199``, ``:270-277``, ``:350-356``), and ``dp_impl:
-    spmd``, raises a ValueError naming it in a process group of one."""
+    (``scheduler.py:179-199``, ``:270-277``, ``:350-356``) raises a
+    ValueError naming it in a process group of one.  ``dp_impl: spmd``
+    with ``zero_opt`` (``message`` None) runs there: the unsharded
+    plan."""
     cfg = load_config("configs/Synthetic/room_smoke.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = 2
     cfg["parallel"].update(parallel)
     if store:
         cfg["keyframe_device"] = store
+    if message is None:
+        slam = SLAMSystem(cfg, output=tempfile.mkdtemp(), device="cpu")
+        assert slam.plan == {"mode": None, "spmd": False,
+                             "zero_opt": False}
+        return
     with pytest.raises(ValueError) as err:
         SLAMSystem(cfg, output=tempfile.mkdtemp(), device="cpu")
     assert message in str(err.value)

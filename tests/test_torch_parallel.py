@@ -1,10 +1,14 @@
 """The port's ray-DP mapper and sharded tracker on 2 gloo ranks against
-the JAX package's on 2 of the virtual CPU devices (conftest), and the
-parallel settings the port refuses; keyframe-sharded BA is held in
-test_torch_parallel_ba.py with the helpers and rules of this file.
+the JAX package's on 2 of the virtual CPU devices (conftest), the
+parallel settings the port refuses and the plan it reads from
+``parallel``; keyframe-sharded BA is held in test_torch_parallel_ba.py,
+``dp_impl: spmd`` in test_torch_dp_spmd.py and the host-staged store
+under ray DP in test_torch_dp_host.py, with the helpers and rules of
+this file.
 
-Each port case runs on a gang of two spawned CPU ranks
-(``tests/torch_gang.py``, a wall-clock limit per gang) with JAX's draws
+The port's cases run on one gang of two spawned CPU ranks (``gang``,
+shared by the module; ``tests/torch_gang.py``, a wall-clock limit per
+gang) with JAX's draws
 replayed: every rank replays the same list, built from JAX's own key
 splits -- the whole padded ray batch and the local batch's renderer
 draws for ray DP (``mapper.py:176-199``), the global batch's jitter for
@@ -60,8 +64,8 @@ from myslam_torch.engine import tracker as ttracker
 from myslam_torch.engine.scheduler import SLAMSystem
 from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
 from test_torch_slice import Pair, render_draws, small_cfg
-from torch_gang import each, gather_store_case, host_staged_refusal, \
-    mapper_case, run_ranks, tracker_case
+from torch_gang import each, gather_store_case, mapper_case, run_ranks, \
+    tracker_case
 
 torch.set_num_threads(2)  # several test workers share the CPU
 
@@ -174,10 +178,75 @@ def grad_bytes(pair):
     return 4 * n
 
 
+# -- the port's 2-rank cases, on one gang -------------------------------------
+
+def dp_case(case):
+    """test_dp_mapper_matches_jax's case: the config, the pair, the
+    window, the key, the draws and the port's cases (the weights
+    doubled; for ``exact`` also as they are)."""
+    jitter = case == "jitter_pad"
+    cfg = small_cfg(perturb=jitter)
+    cfg["mapping"]["pixels"] = 125 if jitter else 128
+    pair = Pair(cfg)
+    win = window(pair)
+    key = jax.random.PRNGKey(4)
+    draws = dp_draws(key, int(cfg["mapping"]["pixels"]), 2, pair, jitter)
+    spec = spec_of(pair, importance=jitter)
+    cases = [(mapper_case, (doubled(cfg), spec, map_np(pair), win, draws,
+                            ITERS, True))]
+    if not jitter:
+        cases.append((mapper_case, (cfg, spec, map_np(pair), win, draws,
+                                    ITERS, True)))
+    return {"cfg": cfg, "pair": pair, "win": win, "key": key,
+            "spec": spec, "cases": cases}
+
+
+def track_case():
+    """test_sharded_tracker_matches_jax's case."""
+    cfg = small_cfg(perturb=True)
+    pair = Pair(cfg)
+    pkt = pair.packet(3, need_full=False)
+    pose_init = np.asarray(matrix_to_cam_pose(
+        jnp.asarray(pair.dataset.poses[2][None])))[0]
+    key = jax.random.PRNGKey(6)
+    iters, n = pkt.px_i.shape
+    draws = [np.asarray(d) for it in range(iters) for d in render_draws(
+        jax.random.fold_in(key, it), n, pair.jscene, False)]
+    inputs = {"pose_init": pose_init, "px_i": pkt.px_i.astype(np.int64),
+              "px_j": pkt.px_j.astype(np.int64), "px_color": pkt.px_color,
+              "px_depth": pkt.px_depth}
+    return {"cfg": cfg, "pair": pair, "pkt": pkt, "pose_init": pose_init,
+            "key": key, "cases": [(tracker_case, (cfg, spec_of(pair),
+                                                  map_np(pair), inputs,
+                                                  draws))]}
+
+
+@pytest.fixture(scope="module")
+def gang():
+    """The port's sides of the ray-DP mapper, the sharded tracker and the
+    rank-0 gather on one gang of 2 ranks: each case's inputs and its
+    per-rank outputs (``outs``: a list per case, rank by rank)."""
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(jps, "ONEHOT_MAX_ROWS", 0)
+    try:
+        cases = {"jitter_pad": dp_case("jitter_pad"),
+                 "exact": dp_case("exact"), "track": track_case(),
+                 "store": {"cases": [(gather_store_case, (6, 8, 4, packed))
+                                     for packed in (False, True)]}}
+    finally:
+        monkey.undo()
+    flat = [(name, c) for name in cases for c in cases[name]["cases"]]
+    ranks = run_ranks(each, 2, [c for _, c in flat], timeout=240)
+    for name in cases:
+        idx = [k for k, (n, _) in enumerate(flat) if n == name]
+        cases[name]["outs"] = [[rank[k] for k in idx] for rank in ranks]
+    return cases
+
+
 # -- engine/mapper.py: ray data parallelism ----------------------------------
 
 @pytest.mark.parametrize("case", ["jitter_pad", "exact"])
-def test_dp_mapper_matches_jax(case):
+def test_dp_mapper_matches_jax(case, gang):
     """make_mapper on 2 ranks with the weights doubled against JAX's
     make_mapper(dp_mesh=...) on 2 devices.  ``jitter_pad``: 125 rays
     (one padded tail ray), jitter and the importance branch (JAX's
@@ -187,11 +256,8 @@ def test_dp_mapper_matches_jax(case):
     rank.  Each iteration makes one gradient all-reduce of the whole flat
     gradient and one of the loss sums."""
     jitter = case == "jitter_pad"
-    cfg = small_cfg(perturb=jitter)
-    cfg["mapping"]["pixels"] = 125 if jitter else 128
-    pair = Pair(cfg)
-    win = window(pair)
-    key = jax.random.PRNGKey(4)
+    c = gang[case]
+    cfg, pair, win, key = c["cfg"], c["pair"], c["win"], c["key"]
 
     def jax_step(dp_mesh):
         step = jmapper.make_mapper(cfg, pair.jscene, pair.jcam,
@@ -203,14 +269,7 @@ def test_dp_mapper_matches_jax(case):
                     jnp.asarray(win["kf_depths"]), key, iters=ITERS,
                     lr_factor=1.0)
 
-    draws = dp_draws(key, int(cfg["mapping"]["pixels"]), 2, pair, jitter)
-    spec = spec_of(pair, importance=jitter)
-    cases = [(mapper_case, (doubled(cfg), spec, map_np(pair), win, draws,
-                            ITERS, True))]
-    if not jitter:
-        cases.append((mapper_case, (cfg, spec, map_np(pair), win, draws,
-                                    ITERS, True)))
-    outs = run_ranks(each, 2, cases)
+    outs = c["outs"]
     for out in outs:
         for res in out:
             assert res["left"] == 0
@@ -235,7 +294,7 @@ def test_dp_mapper_matches_jax(case):
     np.testing.assert_allclose(got["losses"], np.asarray(jlosses), rtol=1e-5)
     np.testing.assert_allclose(got["poses"], np.asarray(jposes), atol=1e-5)
     assert_map(got["map"], jms)
-    one = mapper_case(cfg, spec, map_np(pair), win,
+    one = mapper_case(cfg, c["spec"], map_np(pair), win,
                       dp_draws(key, 128, 1, pair, False), ITERS, False)
     np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-6)
     np.testing.assert_allclose(got["poses"], one["poses"], atol=1e-6)
@@ -262,30 +321,21 @@ def test_single_rank_mapper_is_the_unsharded_path():
 
 # -- engine/tracker.py: the pixel batch split over ranks ----------------------
 
-def test_sharded_tracker_matches_jax():
+def test_sharded_tracker_matches_jax(gang):
     """make_tracker on 2 ranks against JAX's make_tracker with the pixel
     batch sharded over 2 devices: per iteration one all-gather of the
     depth errors, one all-reduce of the loss sums, one of the 7-float
     gradient; the ranks agree bit for bit."""
-    cfg = small_cfg(perturb=True)
-    pair = Pair(cfg)
-    pkt = pair.packet(3, need_full=False)
-    pose_init = np.asarray(matrix_to_cam_pose(
-        jnp.asarray(pair.dataset.poses[2][None])))[0]
-    key = jax.random.PRNGKey(6)
+    c = gang["track"]
+    cfg, pair, pkt, pose_init = c["cfg"], c["pair"], c["pkt"], \
+        c["pose_init"]
     jtrack = jtracker.make_tracker(
         cfg, pair.jscene, pair.jcam,
         ray_sharding=NamedSharding(mesh("dp"), P("dp")))
     jbest, jlosses, jiter = jtrack(pair.jms, pose_init, pkt.px_i, pkt.px_j,
-                                   pkt.px_color, pkt.px_depth, key)
-    iters, n = pkt.px_i.shape
-    draws = [np.asarray(d) for it in range(iters) for d in render_draws(
-        jax.random.fold_in(key, it), n, pair.jscene, False)]
-    inputs = {"pose_init": pose_init, "px_i": pkt.px_i.astype(np.int64),
-              "px_j": pkt.px_j.astype(np.int64), "px_color": pkt.px_color,
-              "px_depth": pkt.px_depth}
-    outs = run_ranks(tracker_case, 2, cfg, spec_of(pair), map_np(pair),
-                     inputs, draws)
+                                   pkt.px_color, pkt.px_depth, c["key"])
+    iters = pkt.px_i.shape[0]
+    outs = [out[0] for out in c["outs"]]
     for out in outs:
         assert out["left"] == 0
         for kind in ("track_grad", "track_loss", "track_median"):
@@ -342,29 +392,74 @@ def test_frame_tracker_matches_jax():
     ({"map_shards": 2}, "parallel.map_shards"),
     ({"pipeline": True, "devices": 2}, "parallel.pipeline"),
     ({"kf_shards": 2, "devices": 2}, "kf_shards x parallel.devices"),
-    ({"dp_impl": "spmd"}, "parallel.dp_impl: spmd"),
+    ({"dp_impl": "spmd"}, None),
     ({"devices": 2}, "parallel.devices (dp, 2 rank(s))"),
     ({"kf_shards": 2}, "parallel.kf_shards (kf, 2 rank(s))"),
 ])
 def test_scheduler_refuses_what_it_does_not_run(tmp_path, parallel, names):
-    """``dp_impl: spmd``, which the port does not run, the pipeline
-    combined with ray DP, which the JAX package refuses, and map_shards,
-    kf x dp, devices or kf_shards of 2 without a process group of their
-    rank count, raise a ValueError naming the mode instead of running on
-    one device (test_torch_kf_dp.py has the other refusals)."""
+    """The pipeline combined with ray DP, which the JAX package refuses,
+    and map_shards, kf x dp, devices or kf_shards of 2 without a process
+    group of their rank count, raise a ValueError naming the mode instead
+    of running on one device (test_torch_kf_dp.py has the other
+    refusals).  ``dp_impl: spmd`` alone (``names`` None) runs: on one
+    rank it is the unsharded plan."""
     cfg = load_config("configs/Synthetic/room_smoke.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = 2
     cfg["parallel"].update(parallel)
+    if names is None:
+        slam = SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+        assert slam.plan == {"mode": None, "spmd": False,
+                             "zero_opt": False}
+        return
     with pytest.raises(ValueError) as err:
         SLAMSystem(cfg, output=str(tmp_path), device="cpu")
     assert names in str(err.value)
 
 
-def test_host_staged_store_is_single_rank():
-    """The host-staged store refuses a multi-rank gang, as the JAX
-    package refuses it across processes."""
-    outs = run_ranks(host_staged_refusal, 2)
-    assert all("host_staged is single-process" in o for o in outs)
+@pytest.mark.parametrize("parallel, world, store, plan", [
+    ({"devices": 2, "dp_impl": "spmd"}, 2, None,
+     {"mode": "dp", "spmd": True, "zero_opt": True}),
+    ({"devices": 0, "dp_impl": "SPMD", "zero_opt": False}, 2, None,
+     {"mode": "dp", "spmd": True, "zero_opt": False}),
+    ({"devices": 2}, 2, None, {"mode": "dp", "spmd": False,
+                               "zero_opt": False}),
+    ({"devices": 2}, 2, "host_staged",
+     {"mode": "dp", "spmd": True, "zero_opt": False}),
+    ({"devices": 2, "dp_impl": "spmd"}, 2, "host",
+     {"mode": "dp", "spmd": True, "zero_opt": True}),
+    ({"pipeline": True, "dp_impl": "spmd"}, 3, None,
+     {"mode": "pipeline", "track": 1, "map": 2, "spmd": True,
+      "zero_opt": False}),
+    ({"pipeline": True, "dp_impl": "spmd"}, 2, None,
+     {"mode": "pipeline", "track": 1, "map": 1, "spmd": False,
+      "zero_opt": False}),
+    ({"kf_shards": 2, "devices": 2, "dp_impl": "spmd"}, 4, None,
+     {"mode": "kfdp", "kf": 2, "dp": 2, "spmd": False, "zero_opt": False}),
+    ({"kf_shards": 0, "dp_impl": "spmd"}, 2, None,
+     {"mode": "kf", "spmd": False, "zero_opt": False}),
+    ({"map_shards": 2, "dp_impl": "spmd"}, 2, None,
+     {"mode": "map", "spmd": False, "zero_opt": False}),
+    ({"devices": 2, "dp_impl": "pjit"}, 2, None, "parallel.dp_impl: pjit"),
+])
+def test_parallel_plan_reads_dp_impl(parallel, world, store, plan):
+    """``parallel_plan``'s two facts for the mapper builders, by the JAX
+    package's rules (``scheduler.py:225-258``): ray DP under ``dp_impl:
+    spmd`` draws the global batch and row-shards Adam unless
+    ``zero_opt`` is false; the pipeline's map role of two ranks draws
+    the global batch with a replicated Adam; kf, kf x dp and map shards
+    ignore ``dp_impl``; the host-staged store's window mapper draws the
+    global batch under either impl.  Another ``dp_impl`` raises, naming
+    it."""
+    from myslam_torch.engine.scheduler import parallel_plan
+
+    cfg = {"parallel": parallel}
+    if store:
+        cfg["keyframe_device"] = store
+    if isinstance(plan, str):
+        with pytest.raises(ValueError, match=plan):
+            parallel_plan(cfg, world)
+        return
+    assert parallel_plan(cfg, world) == plan
 
 
 def test_one_rank_has_no_collectives():
@@ -382,13 +477,11 @@ def test_one_rank_has_no_collectives():
     assert ReplayDraws([]) is not None
 
 
-def test_sharded_store_gathers_to_rank0():
+def test_sharded_store_gathers_to_rank0(gang):
     """``KeyframeStore.full_view`` of a store sharded over 2 ranks, float
     and packed: rank 0 gets every slot's imagery in slot order, one
     gather per buffer; rank 1 gets None (it allocates no copy)."""
-    cases = [(gather_store_case, (6, 8, 4, packed)) for packed in
-             (False, True)]
-    outs = run_ranks(each, 2, cases)
+    outs = gang["store"]["outs"]
     for n, buffers in enumerate((2, 3)):
         r0, r1 = outs[0][n], outs[1][n]
         assert r1["full"] is None

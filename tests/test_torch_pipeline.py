@@ -30,7 +30,8 @@ port's serial run:
 The scene is the synthetic room at 24x32 (48x64 for the gates) with the
 packed keyframe store (its checkpoints hold the store byte for byte) and
 one thread per rank (the one-process runs too, so that float sums match
-bit for bit).
+bit for bit).  The first and the fourth case share one one-process run
+and one 2-rank gang (``nine``).
 """
 
 import os
@@ -42,7 +43,7 @@ import yaml
 
 from myslam_torch.engine.scheduler import SLAMSystem
 from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
-from torch_gang import run_ranks, system_case
+from torch_gang import each, run_ranks, system_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,11 +110,29 @@ def gates(est, serial_est, gt):
         2.0 * np.sqrt((ate_serial ** 2).mean()) + 5e-4
 
 
-def test_pipeline_is_its_one_process_schedule(tmp_path):
-    cfg = config(tmp_path, 9, {"pipeline": True})
-    ref = one_process(cfg, tmp_path / "one")
-    outs = run_ranks(system_case, 2, cfg, str(tmp_path / "gang"),
+@pytest.fixture(scope="module")
+def nine(tmp_path_factory):
+    """The 9-frame pipeline config, its one-process run (``ref``, in
+    ``out``, where it leaves the checkpoint of frame 4), and one gang of
+    2 ranks that runs it from the start into ``gang`` and then resumes
+    it in ``out``: the gang's two outputs per rank."""
+    tmp = tmp_path_factory.mktemp("nine")
+    cfg = config(tmp, 9, {"pipeline": True})
+    out = tmp / "run"
+    ref = one_process(cfg, out)
+    ckpts = sorted(os.listdir(out / "ckpts"))
+    with np.load(out / "ckpts" / "00004.npz") as ck:
+        fields = set(ck.files)
+    outs = run_ranks(each, 2, [(system_case, (cfg, str(tmp / "gang"))),
+                               (system_case, (cfg, str(out), True))],
                      timeout=240)
+    return {"tmp": tmp, "ref": ref, "ckpts": ckpts, "fields": fields,
+            "outs": outs}
+
+
+def test_pipeline_is_its_one_process_schedule(nine):
+    ref = nine["ref"]
+    outs = [rank[0] for rank in nine["outs"]]
     assert [o["role"] for o in outs] == ["track", "map"]
     for out in outs:
         np.testing.assert_array_equal(out["est"], ref.estimates)
@@ -126,18 +145,14 @@ def test_pipeline_is_its_one_process_schedule(tmp_path):
         assert out["counts"]["poses"]["calls"] == 3 + 1  # + the final one
         assert out["counts"]["snapshot"]["calls"] == 2
     # The map role wrote the checkpoint, into rank 0's folder.
-    assert os.path.exists(tmp_path / "gang" / "ckpts" / "00004.npz")
+    assert os.path.exists(nine["tmp"] / "gang" / "ckpts" / "00004.npz")
 
 
-def test_pipeline_resumes_bit_for_bit(tmp_path):
-    cfg = config(tmp_path, 9, {"pipeline": True})
-    out = tmp_path / "run"
-    ref = one_process(cfg, out)
-    ckpts = sorted(os.listdir(out / "ckpts"))
-    assert ckpts == ["00004.npz"]
-    with np.load(out / "ckpts" / "00004.npz") as ck:
-        assert "pipeline_track_est" in ck and "pipeline_snapshot" in ck
-    outs = run_ranks(system_case, 2, cfg, str(out), True, timeout=240)
+def test_pipeline_resumes_bit_for_bit(nine):
+    ref = nine["ref"]
+    assert nine["ckpts"] == ["00004.npz"]
+    assert {"pipeline_track_est", "pipeline_snapshot"} <= nine["fields"]
+    outs = [rank[1] for rank in nine["outs"]]
     for o in outs:
         assert o["start"] == 5
         np.testing.assert_array_equal(o["est"], ref.estimates)

@@ -200,10 +200,12 @@ def test_tool_runs_on_the_cpu(tmp_path, capsys, tool):
     if tool == "profile_components":
         assert set(rep["components"]) == {
             "full_grad", "forward", "raygen", "sdf_field", "rgb_field",
-            "mlp_only", "composite"}
+            "mlp_only", "composite", "adam", "track_frame"}
         for c in rep["components"].values():
             assert set(c) == COMPONENT_KEYS and c["ms"] > 0
             assert c["device_ms"] is None and c["launches"] is None
+        assert rep["track_iter_ms"] == (rep["components"]["track_frame"]
+                                        ["ms"] / rep["track_iters"])
     elif tool == "microbench":
         assert len(rep["ms"]) == 10 and all(v > 0 for v in
                                              rep["ms"].values())

@@ -116,26 +116,56 @@ def _map_out(ms):
     return to_jax_numpy(ms)
 
 
-def mapper_case(cfg, spec, map_np, inputs, draws, iters, sharded):
-    """engine/mapper.make_mapper on this rank: (poses, losses, map)."""
+def mapper_case(cfg, spec, map_np, inputs, draws, iters, sharded,
+                spmd=False, min_rows=None):
+    """engine/mapper.make_mapper on this rank: (poses, losses, map);
+    ``spmd`` draws, and with ``min_rows`` the row-sharded Adam over the
+    atlases of at least that many rows (its moments' bytes returned)."""
     import torch
 
     from myslam_torch.core.sampling import ReplayDraws
+    from myslam_torch.engine import mapper
     from myslam_torch.engine.camera import Camera
-    from myslam_torch.engine.mapper import make_mapper
     from myslam_torch.parallel import distributed
 
     distributed.reset_counts()
+    mapper.ADAM_BYTES.update(atlas_moments=0, atlas_moments_replicated=0)
     ms = _map(map_np)
-    step = make_mapper(cfg, _scene(spec), Camera.from_cfg(cfg),
-                       importance=spec["importance"], sharded=sharded)
+    step = mapper.make_mapper(
+        cfg, _scene(spec), Camera.from_cfg(cfg),
+        importance=spec["importance"], sharded=sharded, spmd=spmd,
+        zero_opt=min_rows is not None, min_rows=min_rows or 0)
     t = {k: torch.as_tensor(v) for k, v in inputs.items()}
     replay = ReplayDraws(draws)
     poses, losses = step(ms, t["poses"], t["pose_mask"], t["slot_kf"],
                          int(inputs["n_slots"]), t["kf_colors"],
                          t["kf_depths"], replay, iters=iters, lr_factor=1.0)
     return {"poses": poses.numpy(), "losses": losses.numpy(),
-            "map": _map_out(ms), "left": len(replay), "counts": _counts()}
+            "map": _map_out(ms), "left": len(replay), "counts": _counts(),
+            "adam_bytes": dict(mapper.ADAM_BYTES)}
+
+
+def reduce_rows_case(shapes, min_rows, seed):
+    """distributed.reduce_grads_rows on this rank's random gradients of
+    parameters of ``shapes`` (2-D ones of at least ``min_rows`` rows
+    row-sharded), by the gloo route (the flat all-reduce and a slice) and
+    by the reduce-scatter route (``_reduce_scatter_rows``, NCCL's), with
+    the gradients and the collectives."""
+    import torch
+
+    from myslam_torch.parallel import distributed
+
+    distributed.reset_counts()
+    gen = torch.Generator().manual_seed(seed + distributed.rank())
+    params = [torch.zeros(s, requires_grad=True) for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen)
+    sharded = [p.dim() == 2 and p.shape[0] >= min_rows for p in params]
+    flat = distributed.reduce_grads_rows(params, sharded)
+    rs = distributed._reduce_scatter_rows(params, sharded)
+    return {"flat": [t.numpy() for t in flat], "rs": [t.numpy() for t in rs],
+            "grads": [p.grad.numpy() for p in params],
+            "sharded": sharded, "counts": _counts()}
 
 
 def tracker_case(cfg, spec, map_np, inputs, draws):
@@ -205,32 +235,60 @@ def pose_system_case(cfg, spec, map_np, poses, per_rank):
     return {"H": H.numpy(), "g": g.numpy()}
 
 
-def host_staged_refusal():
-    """SLAMSystem with the host-staged store under ray DP: the error."""
-    import tempfile
+def window_case(cfg, spec, map_np, cache_np, inputs, draws, iters,
+                sharded, min_rows=None):
+    """engine/mapper.make_window_frame_mapper on this rank over a
+    host-staged store whose line cache holds ``cache_np`` (with
+    ``min_rows`` the row-sharded Adam): the losses, the map, the
+    trajectory and the store's poses."""
+    import torch
 
-    from myslam_torch.engine.scheduler import SLAMSystem
-    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+    from myslam_torch.core.sampling import ReplayDraws
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.engine.keyframes import KeyframeStore
+    from myslam_torch.engine.mapper import make_window_frame_mapper
+    from myslam_torch.parallel import distributed
 
-    cfg = load_config("configs/Synthetic/room_smoke.yaml", DEFAULT_CONFIG)
-    cfg["data"]["n_frames"] = 2
-    cfg["keyframe_device"] = "host_staged"
-    cfg["parallel"]["devices"] = 0
-    try:
-        SLAMSystem(cfg, output=tempfile.mkdtemp(), device="cpu")
-    except ValueError as e:
-        return str(e)
-    return "ran"
+    distributed.reset_counts()
+    cam = Camera.from_cfg(cfg)
+    t = {k: torch.as_tensor(v) for k, v in inputs.items()}
+    store = KeyframeStore(t["kf_est"].shape[0], cam, "cpu",
+                          mode="host_staged")
+    store.init_cache(cache_np["colors"].shape[0])
+    with torch.no_grad():
+        store.cache_colors.copy_(torch.as_tensor(cache_np["colors"]))
+        store.cache_depths.copy_(torch.as_tensor(cache_np["depths"]))
+        store.cache_inv_q.copy_(torch.as_tensor(cache_np["inv_q"]))
+        store.est_c2w.copy_(t["kf_est"])
+        store.gt_c2w.copy_(t["kf_est"])
+    store.count = int(inputs["count"])
+    w_max = t["slot_kf"].shape[0]
+    window_map = make_window_frame_mapper(
+        cfg, _scene(spec), cam, w_max, importance=spec["importance"],
+        sharded=sharded, zero_opt=min_rows is not None,
+        min_rows=min_rows or 0)
+    ms = _map(map_np)
+    est = t["est"].clone()
+    replay = ReplayDraws(draws)
+    idx = int(inputs["idx"])
+    losses = window_map(ms, store, est, t["slot_kf"],
+                        torch.tensor(int(inputs["n_slots"])),
+                        t["pose_mask"], t["win_lines"], t["gt_c2w"], idx,
+                        replay, iters=iters, lr_factor=1.0, joint_opt=True,
+                        admit=True)
+    return {"losses": losses.numpy(), "map": _map_out(ms),
+            "est": est.numpy(), "kf_est": store.est_c2w.numpy(),
+            "left": len(replay), "counts": _counts()}
 
 
 def kf_frame_case(cfg, spec, map_np, store_np, packets, draws, iters,
-                  solver):
+                  solver, solve=None):
     """parallel/distributed_ba.make_kf_frame_mapper on this rank over a
     store sharded over the ranks (each rank fills its own slots), one
     call per packet in order (each admitted at the store's count), all
     from one replayed draw list: per frame the losses, the trajectory
-    and the store's poses; at the end the map and this rank's
-    imagery."""
+    and the store's poses; at the end the map and this rank's imagery.
+    ``solve``: the mapper's ``schur_interval`` and ``lm_damping``."""
     import torch
 
     from myslam_torch.core.sampling import ReplayDraws
@@ -258,7 +316,7 @@ def kf_frame_case(cfg, spec, map_np, store_np, packets, draws, iters,
                                     cap - 1)
     mapper = make_kf_frame_mapper(cfg, _scene(spec), cam, selector, w_max,
                                   cap - 1, importance=False,
-                                  pose_solver=solver)
+                                  pose_solver=solver, **(solve or {}))
     ms = _map(map_np)
     est = torch.as_tensor(store_np["est"]).clone()
     replay = ReplayDraws(draws)
@@ -419,8 +477,14 @@ def system_case(config, out_dir, resume=False):
     start = slam.resume() if resume else 0
     slam.run(start, finalize=False)
     owns_map = slam.pipe is None or slam.pipe.is_map
+    host = None
+    if slam.store.host_mode:
+        host = {"bound_lines": slam.store.check_cache(),
+                "selection_fetches": slam.selection_fetches,
+                "count": slam.store.count,
+                "colors_u8": slam.store.colors_u8.numpy()}
     return {"est": slam.estimates, "start": start,
             "map": _map_out(slam.map_state) if owns_map else None,
             "role": None if slam.pipe is None else
             "map" if slam.pipe.is_map else "track",
-            "counts": _counts()}
+            "counts": _counts(), "host": host}
