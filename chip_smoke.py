@@ -203,9 +203,11 @@ per mapping iteration:
                      draws one device makes, Adam's atlas moments
                      row-sharded): every rank's trajectory and map bit for
                      bit, within DP_GATE_M of phase slam's trajectory, the
-                     collectives by kind (one ``grad_rs`` and one
-                     ``zero_gather`` per mapping iteration, with their
-                     bytes), each rank's Adam moments against the
+                     collectives by kind (per mapping iteration one
+                     ``grad_rs``, the reduce-scatter of the atlas rows, one
+                     ``grad`` of the decoders and poses and one
+                     ``zero_gather``, with their bytes), each rank's Adam
+                     moments against the
                      replicated Adam's (half, to a row), K1/K2 launches;
   then, each alone:
   * pipeline      -- the track||map pipeline (``parallel.pipeline``: rank 0
@@ -2719,12 +2721,19 @@ def run_dp_spmd(slam_rec: dict, slam_est) -> list:
     """Phase dp_spmd: ray DP under ``dp_impl: spmd`` with ``zero_opt``
     (DP_SPMD) on GANG_RANKS ranks (run_gang's gates), every rank's map
     bit for bit (the all-gathered rows), within DP_GATE_M per frame of
-    phase slam's trajectory, one ``grad_rs`` and one ``zero_gather`` per
-    mapping iteration and no ``grad``, and each rank's Adam moments of
-    the atlases half the replicated Adam's, to a row.  Returns the
-    ranks' records."""
+    phase slam's trajectory, one ``grad_rs`` (the atlases' padded row
+    blocks), one ``grad`` and one ``zero_gather`` per mapping iteration,
+    and each rank's Adam moments of the atlases half the replicated
+    Adam's, to a row.  Returns the ranks' records."""
     import numpy as np
 
+    from myslam_torch.render.renderer import scene_from_cfg
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    scene = scene_from_cfg(load_config(GANG_CONFIG, DEFAULT_CONFIG))
+    padded = sum(4 * -(-lay.total_rows // GANG_RANKS) * GANG_RANKS
+                 * lay.c_dim for lay in (scene.sdf_layout,
+                                         scene.color_layout))
     recs = run_gang("dp_spmd", gang_config("dp_spmd", DP_SPMD))
     r0 = recs[0]
     vs_slam = translation_diff(np.asarray(r0["est"]), slam_est)
@@ -2736,8 +2745,11 @@ def run_dp_spmd(slam_rec: dict, slam_est) -> list:
         # rank's block is ceil(rows / 2) rows.
         row_slack = 2 * 2 * 4 * 32
         if (rec["plan"] != {"mode": "dp", "spmd": True, "zero_opt": True}
-                or "grad" in c or c["grad_rs"]["calls"] != iters
+                or c["grad_rs"]["calls"] != iters
+                or c["grad"]["calls"] != iters
                 or c["zero_gather"]["calls"] != iters
+                or c["grad_rs"]["bytes"] != iters * padded
+                or c["zero_gather"]["bytes"] != iters * padded
                 or rec["map_digest"] != r0["map_digest"]
                 or not 0 < adam["atlas_moments"]
                 <= adam["atlas_moments_replicated"] / 2 + row_slack):
@@ -2746,6 +2758,8 @@ def run_dp_spmd(slam_rec: dict, slam_est) -> list:
         per_rank.append({
             "grad_rs_bytes": c["grad_rs"]["bytes"] // iters,
             "grad_rs_ms_mean": 1e3 * c["grad_rs"]["seconds"] / iters,
+            "grad_bytes": c["grad"]["bytes"] // iters,
+            "grad_ms_mean": 1e3 * c["grad"]["seconds"] / iters,
             "zero_gather_bytes": c["zero_gather"]["bytes"] // iters,
             "zero_gather_ms_mean": 1e3 * c["zero_gather"]["seconds"]
             / iters, "adam_bytes": adam})
@@ -2816,8 +2830,9 @@ def run_scaling(dp_recs: list, spmd_recs: list, components: dict,
                 sweep: dict, metrics_path: str) -> dict:
     """Phase scaling: tools/validate_scaling.py's rows from phases dp and
     dp_spmd (rank 0's mapping collectives over its mapping iterations):
-    plain DP's all-reduce 1.00 of the model's payload, ZeRO's reduction
-    the same bytes and its all-gather the atlases' padded rows;
+    plain DP's all-reduce 1.00 of the model's payload, ZeRO's
+    reduce-scatter and all-gather the atlases' padded rows and its
+    all-reduce the rest of plain DP's;
     tools/scaling_report.py from phases components and raysweep, phase
     dp's link rate and phase slam's host ms per frame (every projected
     fps finite and positive); tools/bench_pose_solver.py on GANG_RANKS
@@ -2845,9 +2860,12 @@ def run_scaling(dp_recs: list, spmd_recs: list, components: dict,
     padded = sum(4 * -(-lay.total_rows // GANG_RANKS) * GANG_RANKS
                  * lay.c_dim for lay in (scene.sdf_layout,
                                          scene.color_layout))
+    atlases = sum(4 * lay.total_rows * lay.c_dim
+                  for lay in (scene.sdf_layout, scene.color_layout))
     if (round(plain["ratio_vs_model"]["grad"], 2) != 1.0
-            or zero["bytes_per_iter"]["grad_rs"]
-            != plain["bytes_per_iter"]["grad"]
+            or zero["bytes_per_iter"]["grad_rs"] != padded
+            or zero["bytes_per_iter"]["grad"]
+            != plain["bytes_per_iter"]["grad"] - atlases
             or zero["bytes_per_iter"]["zero_gather"] != padded):
         raise AssertionError(f"validate_scaling rows {rows}")
     link = scaling_report.link_gbps_of(dp_recs[0])

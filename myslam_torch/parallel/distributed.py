@@ -44,11 +44,11 @@ all-gather of the bands after a mapped frame); for the pipeline
 seconds from the device's last queued work to the call's return; for a
 point-to-point transfer, the seconds its ``wait`` blocked.
 
-On gloo, the backend of ranks that share a card, the row-sharded Adam's
-reduction is the flat all-reduce of plain DP and a local slice (gloo
-need not have a reduce-scatter, and the summed gradient is then the one
-the replicated Adam takes); NCCL's ``reduce_scatter_tensor`` on cards of
-their own.
+The row-sharded Adam's reduction is one ``reduce_scatter_tensor`` on
+every backend (gloo's through the host, as ``comm_device`` says).  On 2
+ranks each summed element is a + b in either order, so the update equals
+the replicated Adam's bit for bit; on more ranks the reduce-scatter may
+sum in another order than the all-reduce.
 """
 
 from __future__ import annotations
@@ -339,36 +339,29 @@ def _split(flat: torch.Tensor, like) -> list:
 def reduce_grads_rows(params, sharded) -> list:
     """The gradients of ``params`` summed over the ranks, for the
     row-sharded Adam: whole for a replicated parameter, this rank's
-    block of rows (``host_shard``) for one marked in ``sharded``.  gloo:
-    one all-reduce of the whole flat gradient (kind ``grad_rs``, the
-    buffer and bytes of ``all_reduce_grads``), then a local slice.
-    NCCL: one ``reduce_scatter_tensor`` of the sharded parameters' row
-    blocks (``grad_rs``) and one all-reduce of the replicated ones
-    (``grad``).  Returns the gradients in the order of ``params``."""
+    block of rows (``host_shard``) for one marked in ``sharded``.  One
+    ``reduce_scatter_tensor`` of the sharded parameters' row blocks
+    (kind ``grad_rs``) and one all-reduce of the replicated ones
+    (``grad``), each only where there are such parameters.  Returns the
+    gradients in the order of ``params``."""
     params = list(params)
     if world() == 1:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in params]
-    blocks = [host_shard(p.shape[0]) if s else None
-              for p, s in zip(params, sharded)]
-    if backend() != "nccl":
-        flat = _flat_grads(params)
-        t0 = _start(flat)
-        dist.all_reduce(flat, group=_pg())
-        _count("grad_rs", flat.numel() * flat.element_size(),
-               time.perf_counter() - t0)
-        return [g if b is None else g[b[0]:b[1]]
-                for g, b in zip(_split(flat, params), blocks)]
-    return _reduce_scatter_rows(params, sharded)
-
-
-def _reduce_scatter_rows(params, sharded) -> list:
-    """NCCL's side of ``reduce_grads_rows``: rank r's segment of the
-    input holds rank r's row block of every sharded gradient, padded to
-    ``ceil(rows / world)`` rows."""
-    n = world()
     shard = [p for p, s in zip(params, sharded) if s]
     rest = [p for p, s in zip(params, sharded) if not s]
+    mine = iter(_reduce_scatter_rows(shard) if shard else [])
+    summed = iter(_split(all_reduce_(_flat_grads(rest), "grad"), rest)
+                  if rest else [])
+    return [next(mine) if s else next(summed) for s in sharded]
+
+
+def _reduce_scatter_rows(shard) -> list:
+    """This rank's row block of each gradient of ``shard`` summed over
+    the ranks, by one ``reduce_scatter_tensor``: rank r's segment of its
+    input holds rank r's block of every gradient, padded to
+    ``ceil(rows / world)`` rows."""
+    n = world()
     per = [-(-p.shape[0] // n) for p in shard]
     seg = sum(k * p[0].numel() for k, p in zip(per, shard))
     buf = torch.zeros((n, seg), dtype=torch.float32,
@@ -381,11 +374,13 @@ def _reduce_scatter_rows(params, sharded) -> list:
             part = g[r * k:(r + 1) * k].reshape(-1)
             buf[r, off:off + part.numel()] = part
         off += k * row
-    out = torch.empty((seg,), dtype=torch.float32, device=buf.device)
+    send = buf.reshape(-1).to(comm_device())
+    out = torch.empty((seg,), dtype=torch.float32, device=send.device)
     t0 = _start(buf)
-    dist.reduce_scatter_tensor(out, buf.reshape(-1), group=_pg())
+    dist.reduce_scatter_tensor(out, send, group=_pg())
     _count("grad_rs", buf.numel() * buf.element_size(),
            time.perf_counter() - t0)
+    out = out.to(buf.device)
     mine, off = [], 0
     for k, p in zip(per, shard):
         lo, hi = host_shard(p.shape[0])
@@ -393,10 +388,7 @@ def _reduce_scatter_rows(params, sharded) -> list:
         mine.append(out[off:off + (hi - lo) * row].view(
             (hi - lo,) + tuple(p.shape[1:])))
         off += k * row
-    summed = iter(_split(all_reduce_(_flat_grads(rest), "grad"), rest)
-                  if rest else [])
-    mine = iter(mine)
-    return [next(mine) if s else next(summed) for s in sharded]
+    return mine
 
 
 def all_gather_rows(fulls, blocks) -> int:

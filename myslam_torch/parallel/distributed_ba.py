@@ -30,12 +30,12 @@ the kf row r // D and the dp column r % D):
     sample with the map detached (K2 then computes the coordinate
     gradient alone); H (W, 7, 7) = sum J^T J and g (W, 7) = sum J^T r by
     ``index_add_``, summed over the ranks in one all-reduce (W x 56
-    floats) and solved with Levenberg damping (``lm_damping``, 0.1 by
-    default) on every rank.  The map step then runs at the solved poses
-    with their gradient stopped.  ``schur_interval`` k > 1 solves only
-    on iterations whose index is a multiple of k (the poses move slowly
-    against the map; ``tools/bench_pose_solver.py``); the others take
-    the map step at the poses as they are.
+    floats) and solved with Levenberg damping on every rank.  The map
+    step then runs at the solved poses with their gradient stopped.  The
+    bare step's ``schur_interval`` k > 1 solves only on iterations whose
+    index is a multiple of k (the poses move slowly against the map;
+    ``tools/bench_pose_solver.py``); the others take the map step at the
+    poses as they are.
 
 ``pose_solver: adam`` optimizes the poses jointly with the map by Adam,
 as the single-device mapper does.
@@ -71,7 +71,7 @@ from myslam_torch.render.renderer import SceneGeometry, build_z_vals_core, \
 SCHUR_LAUNCHES = {"plane_sample_fwd": 0, "plane_sample_bwd": 0}
 
 # Levenberg damping of the reduced pose solve, relative to the mean
-# diagonal of each pose's block (the JAX package's default ``lm_damping``).
+# diagonal of each pose's block (the JAX package's default).
 LM_DAMPING = 0.1
 
 
@@ -139,9 +139,9 @@ def _global_loss(cfg, scene, sdf, z_vals, depth, color, px_depth, px_color,
         lambda t: distributed.all_reduce_(t, "loss"))
 
 
-def _solve(H, g, poses, pose_mask, lm_damping: float = LM_DAMPING):
+def _solve(H, g, poses, pose_mask):
     """The Levenberg-damped Gauss-Newton step of every window pose."""
-    damp = lm_damping * torch.clamp(
+    damp = LM_DAMPING * torch.clamp(
         torch.diagonal(H, dim1=1, dim2=2).sum(-1)[:, None] / 7.0, min=1e-6)
     eye = torch.eye(7, device=H.device, dtype=H.dtype)
     delta = -torch.linalg.solve(H + damp[..., None] * eye, g[..., None])[
@@ -214,9 +214,7 @@ def make_pose_system(cfg: dict, scene: SceneGeometry, cam: Camera,
 
 def make_distributed_ba(cfg: dict, scene: SceneGeometry, cam: Camera,
                         iters: int | None = None, pose_solver: str = "schur",
-                        packed: bool = False,
-                        lm_damping: float = LM_DAMPING,
-                        schur_interval: int = 1):
+                        packed: bool = False, schur_interval: int = 1):
     """The bare keyframe-sharded BA step (the port of
     ``make_distributed_ba``).
 
@@ -225,10 +223,10 @@ def make_distributed_ba(cfg: dict, scene: SceneGeometry, cam: Camera,
     (iters,)); ``ms`` is updated in place.  Adam at the mapping rates
     times ``mapping.lr_factor`` on the map; the poses by Adam at
     ``joint_opt_cam_lr`` or, with ``pose_solver="schur"``, by the damped
-    reduced solve first (``lm_damping``; on every ``schur_interval``-th
-    iteration of the call, from its first), and the map step at the
-    solved poses.  Draws per iteration: the picker's, then the
-    depth-guided jitter (``uniform((rays, N))`` when perturb).
+    reduced solve first (on every ``schur_interval``-th iteration of the
+    call, from its first), and the map step at the solved poses.  Draws
+    per iteration: the picker's, then the depth-guided jitter
+    (``uniform((rays, N))`` when perturb).
     """
     if pose_solver not in ("adam", "schur"):
         raise ValueError(f"unknown pose_solver {pose_solver!r}")
@@ -278,7 +276,7 @@ def make_distributed_ba(cfg: dict, scene: SceneGeometry, cam: Camera,
                     H, g = pose_system(ms, poses, p, i, j, px_depth,
                                        px_color, z_vals, valid)
                     with torch.no_grad():
-                        poses = _solve(H, g, poses, pose_mask, lm_damping)
+                        poses = _solve(H, g, poses, pose_mask)
                 loss = map_loss(ms, poses.detach(), pose_mask, p, i, j,
                                 px_depth, px_color, z_vals, valid)
                 loss.backward()
@@ -300,9 +298,7 @@ def make_distributed_ba(cfg: dict, scene: SceneGeometry, cam: Camera,
 def make_kf_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                          selector, w_max: int, scratch_slot: int,
                          importance: bool = True, pose_solver: str = "adam",
-                         packed: bool = False, dp: int = 1,
-                         lm_damping: float = LM_DAMPING,
-                         schur_interval: int = 1):
+                         packed: bool = False, dp: int = 1):
     """One mapped frame with keyframe-sharded BA (the port of
     ``make_kf_frame_mapper`` on a ``kf`` mesh, or with ``dp`` > 1 on a
     ``(kf, dp)`` mesh of the ranks), the same contract as
@@ -315,10 +311,8 @@ def make_kf_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
       * the iterations: each rank's rays from its own window slots
         (``make_local_ray_picker``), global masked means, one gradient
         all-reduce; the poses by Adam or by the reduced solve first
-        (``pose_solver``; ``lm_damping``, on the iterations of the frame
-        whose index is a multiple of ``schur_interval``), whose residual
-        composites color over every sample (the top-K choice makes the
-        pose gradient jump);
+        (``pose_solver``), whose residual composites color over every
+        sample (the top-K choice makes the pose gradient jump);
       * the masked pose write-back, and admission: the slot's owner
         writes the packet's imagery at ``count`` (the scratch slot
         without admission), every rank the poses.
@@ -382,11 +376,11 @@ def make_kf_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
         params = optimizer_params(opt)
         imagery = store.imagery()
         losses = []
-        for it in range(iters):
+        for _ in range(iters):
             p, i, j, px_depth, px_color, valid = pick(
                 slot_kf, n_slots, imagery, store.local_capacity, draws)
             loss_draws = draws
-            if schur and it % schur_interval == 0:
+            if schur:
                 rec = RecordedDraws(draws)
                 with torch.no_grad():
                     rays_o, rays_d = rays_at(poses, p, i, j)
@@ -396,7 +390,7 @@ def make_kf_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                 H, g = pose_system(ms, poses, p, i, j, px_depth, px_color,
                                    z_vals, valid)
                 with torch.no_grad():
-                    poses = _solve(H, g, poses, pose_mask, lm_damping)
+                    poses = _solve(H, g, poses, pose_mask)
                 loss_draws = rec.replay()
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(ms, poses, pose_mask, p, i, j, px_depth,

@@ -19,9 +19,9 @@ reduce-scatter's input and of an all-gather's output.
 
   * plain DP: one all-reduce of the flat gradient (``grad``), the
     model's payload plus the window poses: ratio 1.00;
-  * ZeRO: the reduction (``grad_rs``: plain DP's all-reduce of the flat
-    gradient and a slice on gloo; a reduce-scatter on NCCL) and the
-    all-gather of the sharded atlas rows (``zero_gather``).
+  * ZeRO: the reduce-scatter of the sharded atlas rows (``grad_rs``),
+    the all-reduce of the replicated decoders and poses (``grad``) and
+    the all-gather of the updated atlas rows (``zero_gather``).
 
 ``--smoke``: ``configs/Synthetic/room_smoke.yaml`` (120x160 imagery,
 1,024 rays, the room's atlases); else ``room.yaml``.  Ranks run on their
@@ -38,13 +38,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def op_of(kind: str, backend: str | None) -> str:
-    """The collective a counted kind is on ``backend``."""
-    if kind == "zero_gather":
-        return "all-gather"
-    if kind == "grad_rs" and backend == "nccl":
-        return "reduce-scatter"
-    return "all-reduce"
+def op_of(kind: str) -> str:
+    """The collective a counted kind is."""
+    return {"zero_gather": "all-gather",
+            "grad_rs": "reduce-scatter"}.get(kind, "all-reduce")
 
 
 def row(counts: dict, iters: int, world: int, backend: str | None,
@@ -57,9 +54,9 @@ def row(counts: dict, iters: int, world: int, backend: str | None,
     per_iter = {k: v["bytes"] / iters for k, v in counts.items()}
     share = {"all-reduce": ring, "reduce-scatter": ring / 2,
              "all-gather": ring / 2}
-    wire = sum(b * share[op_of(k, backend)] for k, b in per_iter.items())
+    wire = sum(b * share[op_of(k)] for k, b in per_iter.items())
     return {"n": n, "impl": impl, "backend": backend,
-            "ops": {k: op_of(k, backend) for k in per_iter},
+            "ops": {k: op_of(k) for k in per_iter},
             "calls_per_iter": {k: v["calls"] / iters
                                for k, v in counts.items()},
             "bytes_per_iter": per_iter,

@@ -279,5 +279,10 @@ def supervise(args) -> int:
 
 
 if __name__ == "__main__":
+    # One write per line: a gang's ranks, its launcher and a supervisor's
+    # children share one pipe, and an unbuffered stream
+    # (PYTHONUNBUFFERED) writes a print's text and its newline apart, so
+    # two processes' lines could interleave.
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
     result = main()
     sys.exit(result if isinstance(result, int) else 0)

@@ -154,6 +154,7 @@ def test_window_mapper_matches_jax_on_two_ranks(gang):
         assert repl["counts"]["grad"]["calls"] == ITERS
         assert repl["counts"]["loss"]["calls"] == ITERS
         assert zero["counts"]["grad_rs"]["calls"] == ITERS
+        assert zero["counts"]["grad"]["calls"] == ITERS
         assert zero["counts"]["zero_gather"]["calls"] == ITERS
     got = outs[0][0]
     np.testing.assert_allclose(got["losses"], np.asarray(jlosses),

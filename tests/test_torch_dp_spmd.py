@@ -13,15 +13,15 @@ row on 2 ranks), then the renderer's jitter and importance draws of the
 whole batch, of which each rank takes its rows (``RowShardDraws``).
 
   * (a) The row-sharded Adam equals the replicated one bit for bit: the
-    update is elementwise and the summed gradient is the same buffer
-    (gloo: one all-reduce of the flat gradient, then a slice).  Per
-    iteration one ``grad_rs`` of the flat gradient's bytes, one
-    ``zero_gather`` of both atlases' padded row blocks, no ``grad``;
-    each rank's moments are its own rows'.  The reduction's other route,
-    the reduce-scatter that NCCL takes (NCCL needs a card per rank),
-    runs on gloo in this test, where PyTorch's gloo has one: each rank's
-    rows of the summed gradients, bit for bit the gloo route's (two
-    addends sum the same either way) and the numpy sum's.
+    update is elementwise, and on 2 ranks each summed element is a + b
+    in either order, whether the reduce-scatter or the all-reduce adds
+    them.  Per iteration one ``grad_rs`` (the reduce-scatter of both
+    atlases' padded row blocks), one ``grad`` (the all-reduce of the
+    decoders and poses), one ``zero_gather`` of the padded row blocks;
+    each rank's moments are its own rows'.  The reduction alone, on
+    parameters of odd row counts and 1-D ones: each rank's rows of the
+    summed gradients, bit for bit the numpy sum's; with no parameter of
+    ``min_rows`` rows, one all-reduce of them all.
   * (b) Against JAX's ``make_mapper(ray_sharding=..., opt_sharding=...)``
     on 2 virtual devices (its row sharder leaves these small atlases
     whole; the math is the same), whose draws are its single device's:
@@ -67,8 +67,9 @@ def _scatter_route(monkeypatch):
 
 @pytest.fixture(scope="module")
 def gang():
-    """The two spmd runs and the reduction's case on one gang of 2
-    ranks: [zero, replicated, reduction] per rank."""
+    """The two spmd runs and the reduction's two cases (both large
+    parameters sharded, none) on one gang of 2 ranks: [zero, replicated,
+    reduction, reduction of nothing sharded] per rank."""
     cfg = small_cfg(perturb=True)
     cfg["mapping"]["pixels"] = N_RAYS
     pair = Pair(cfg)
@@ -79,7 +80,8 @@ def gang():
     args = (cfg, spec, map_np(pair), win, draws, ITERS, True, True)
     outs = run_ranks(each, 2, [(mapper_case, args + (MIN_ROWS,)),
                                (mapper_case, args),
-                               (reduce_rows_case, (SHAPES, MIN_ROWS, 0))])
+                               (reduce_rows_case, (SHAPES, MIN_ROWS, 0)),
+                               (reduce_rows_case, (SHAPES, 10 ** 6, 1))])
     return types.SimpleNamespace(cfg=cfg, pair=pair, win=win, key=key,
                                  draws=draws, spec=spec, outs=outs)
 
@@ -90,7 +92,7 @@ def test_row_sharded_adam_is_the_replicated_adam(gang):
     exactly, each rank's moments those of its own rows."""
     pair = gang.pair
     sdf, color = pair.ms.sdf_atlas, pair.ms.color_atlas
-    for rank, (zero, repl, _) in enumerate(gang.outs):
+    for rank, (zero, repl, _, _) in enumerate(gang.outs):
         for name in ("losses", "poses"):
             np.testing.assert_array_equal(zero[name], repl[name])
             np.testing.assert_array_equal(zero[name],
@@ -105,11 +107,14 @@ def test_row_sharded_adam_is_the_replicated_adam(gang):
         # Padded blocks: ceil(rows / 2) rows of each atlas per rank.
         gathered = 2 * 4 * sum(-(-a.shape[0] // 2) * a.shape[1]
                                for a in (sdf, color))
+        atlases = 4 * (sdf.numel() + color.numel())
         counts = zero["counts"]
-        assert set(counts) == {"grad_rs", "zero_gather", "loss"}
         assert {k: counts[k]["calls"] for k in counts} == {
-            "grad_rs": ITERS, "zero_gather": ITERS, "loss": ITERS}
-        assert counts["grad_rs"]["bytes"] == ITERS * grad_bytes(pair)
+            "grad_rs": ITERS, "grad": ITERS, "zero_gather": ITERS,
+            "loss": ITERS}
+        assert counts["grad_rs"]["bytes"] == ITERS * gathered
+        assert counts["grad"]["bytes"] == ITERS * (grad_bytes(pair)
+                                                   - atlases)
         assert counts["zero_gather"]["bytes"] == ITERS * gathered
         assert repl["counts"]["grad"]["calls"] == ITERS
         assert "grad_rs" not in repl["counts"]
@@ -118,7 +123,7 @@ def test_row_sharded_adam_is_the_replicated_adam(gang):
             (min((rank + 1) * -(-a.shape[0] // 2), a.shape[0])
              - rank * -(-a.shape[0] // 2)) * a.shape[1]
             for a in (sdf, color))
-        full = 2 * 4 * (sdf.numel() + color.numel())
+        full = 2 * atlases
         assert zero["adam_bytes"] == {"atlas_moments": own,
                                       "atlas_moments_replicated": full}
         assert repl["adam_bytes"]["atlas_moments"] == 0
@@ -130,11 +135,21 @@ def test_row_sharded_adam_is_the_replicated_adam(gang):
             if out["sharded"][k]:
                 rows = -(-shape[0] // 2)
                 total = total[rank * rows:(rank + 1) * rows]
-            np.testing.assert_array_equal(out["flat"][k], total)
             np.testing.assert_array_equal(out["rs"][k], total)
         c = out["counts"]
-        assert {k: v["calls"] for k, v in c.items()} == {"grad_rs": 2,
+        assert {k: v["calls"] for k, v in c.items()} == {"grad_rs": 1,
                                                         "grad": 1}
+        assert c["grad_rs"]["bytes"] == 2 * 4 * (430 * 8 + 1506 * 8)
+        assert c["grad"]["bytes"] == 4 * (7 * 3 + 16)
+    # No parameter reaches min_rows: the replicated all-reduce alone.
+    parts = [rank[3] for rank in gang.outs]
+    for out in parts:
+        assert out["sharded"] == [False] * len(SHAPES)
+        for k in range(len(SHAPES)):
+            np.testing.assert_array_equal(
+                out["rs"][k], parts[0]["grads"][k] + parts[1]["grads"][k])
+        assert {k: v["calls"] for k, v in out["counts"].items()} == {
+            "grad": 1}
 
 
 def test_spmd_mapper_matches_jax(gang):

@@ -1,5 +1,6 @@
 """The mini-loop (``myslam_torch/parallel/multiproc.run_minislam``) in
-both modes on a gang of 2 CPU ranks (``launch(2)``) against the JAX
+both modes on one gang of 2 CPU ranks (``run_ranks``, shared by the
+module) against the JAX
 package's ``run_minislam`` run in this process on 2 of the virtual CPU
 devices: the same initial map and JAX's draws replayed (every rank
 replays the same list, built from JAX's own key splits), the loss
@@ -25,9 +26,9 @@ from myslam_tpu.engine.scheduler import compute_bound as j_compute_bound
 from myslam_tpu.models.decoders import init_decoder_params
 from myslam_tpu.models.planes import init_map_state, make_layout
 from myslam_tpu.parallel import multiproc as jmultiproc
-from myslam_torch.parallel import multiproc
 from test_torch_parallel import LOSS_WEIGHTS
 from test_torch_slice import render_draws
+from torch_gang import each, minislam_case, run_ranks
 
 FRAMES = 6
 RANKS = 2
@@ -100,19 +101,33 @@ def write_replay(path, mode, seed=0):
              **{f"draw_{k}": d for k, d in enumerate(draws)})
 
 
-@pytest.mark.parametrize("mode", ["dp", "kf"])
-def test_minislam_gang_matches_jax(tmp_path, monkeypatch, mode):
+MODES = ("dp", "kf")
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    """Both modes' port runs on one gang of 2 ranks, each from JAX's
+    map and draws (``write_replay``): per mode, the ranks' outputs."""
+    tmp = tmp_path_factory.mktemp("minislam")
+    weights = {k: 2.0 * float(jmultiproc.tiny_cfg(FRAMES, RANKS)
+                              ["mapping"][k]) for k in LOSS_WEIGHTS}
+    cases = []
+    for mode in MODES:
+        path = str(tmp / f"replay_{mode}.npz")
+        write_replay(path, mode)
+        cases.append((minislam_case, (mode, FRAMES, path,
+                                      {"mapping": weights})))
+    ranks = run_ranks(each, RANKS, cases, timeout=240)
+    return {mode: [rank[k] for rank in ranks]
+            for k, mode in enumerate(MODES)}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_minislam_gang_matches_jax(gang, monkeypatch, mode):
     """The port's mini-loop on 2 ranks against JAX's on 2 devices: the
     6-frame trajectory, the tracking losses and every mapping
     iteration's loss; both ranks agree bit for bit."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' threads
-    path = str(tmp_path / "replay.npz")
-    write_replay(path, mode)
-    weights = {k: 2.0 * float(jmultiproc.tiny_cfg(FRAMES, RANKS)
-                              ["mapping"][k]) for k in LOSS_WEIGHTS}
-    outs = multiproc.launch(RANKS, mode=mode, frames=FRAMES, replay=path,
-                            overrides={"mapping": weights}, timeout=240,
-                            device="cpu")
+    outs = gang[mode]
     devices = jax.devices()
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices[:RANKS])
     ref = jmultiproc.run_minislam(mode, FRAMES, seed=0, log=lambda m: None)

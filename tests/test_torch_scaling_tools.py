@@ -147,11 +147,16 @@ def test_validate_scaling_counts_plain_dp_and_zero(validated):
     assert plain["calls_per_iter"] == {"grad": 1.0, "loss": 1.0}
     assert round(plain["ratio_vs_model"]["grad"], 2) == 1.00
     assert round(plain["wire_ratio_vs_model"], 2) == 1.00
-    assert zero["calls_per_iter"] == {"grad_rs": 1.0, "zero_gather": 1.0,
-                                      "loss": 1.0}
-    assert zero["ops"]["grad_rs"] == "all-reduce"
-    assert zero["bytes_per_iter"]["grad_rs"] == \
-        plain["bytes_per_iter"]["grad"]
+    assert zero["calls_per_iter"] == {"grad_rs": 1.0, "grad": 1.0,
+                                      "zero_gather": 1.0, "loss": 1.0}
+    assert zero["ops"] == {"grad_rs": "reduce-scatter", "grad": "all-reduce",
+                           "zero_gather": "all-gather",
+                           "loss": "all-reduce"}
+    atlases = 4 * sum(lay.total_rows * lay.c_dim
+                          for lay in (scene.sdf_layout, scene.color_layout))
+    assert zero["bytes_per_iter"]["grad_rs"] == padded
+    assert zero["bytes_per_iter"]["grad"] == \
+        plain["bytes_per_iter"]["grad"] - atlases
     assert zero["bytes_per_iter"]["zero_gather"] == padded
 
 

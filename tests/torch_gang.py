@@ -148,9 +148,7 @@ def mapper_case(cfg, spec, map_np, inputs, draws, iters, sharded,
 def reduce_rows_case(shapes, min_rows, seed):
     """distributed.reduce_grads_rows on this rank's random gradients of
     parameters of ``shapes`` (2-D ones of at least ``min_rows`` rows
-    row-sharded), by the gloo route (the flat all-reduce and a slice) and
-    by the reduce-scatter route (``_reduce_scatter_rows``, NCCL's), with
-    the gradients and the collectives."""
+    row-sharded), with the gradients and the collectives."""
     import torch
 
     from myslam_torch.parallel import distributed
@@ -161,11 +159,20 @@ def reduce_rows_case(shapes, min_rows, seed):
     for p in params:
         p.grad = torch.randn(p.shape, generator=gen)
     sharded = [p.dim() == 2 and p.shape[0] >= min_rows for p in params]
-    flat = distributed.reduce_grads_rows(params, sharded)
-    rs = distributed._reduce_scatter_rows(params, sharded)
-    return {"flat": [t.numpy() for t in flat], "rs": [t.numpy() for t in rs],
-            "grads": [p.grad.numpy() for p in params],
-            "sharded": sharded, "counts": _counts()}
+    rs = distributed.reduce_grads_rows(params, sharded)
+    return {"rs": [t.numpy() for t in rs],
+            "grads": [p.grad.numpy() for p in params], "sharded": sharded,
+            "counts": _counts()}
+
+
+def minislam_case(mode, frames, replay, overrides):
+    """parallel/multiproc.run_minislam on this rank from the ``replay``
+    file (the map and the draws), the config merged with
+    ``overrides``."""
+    from myslam_torch.parallel import multiproc
+
+    return multiproc.run_minislam(mode, frames, 0, "cpu", replay, overrides,
+                                  log=lambda m: None)
 
 
 def tracker_case(cfg, spec, map_np, inputs, draws):
@@ -190,9 +197,11 @@ def tracker_case(cfg, spec, map_np, inputs, draws):
             "counts": _counts()}
 
 
-def kf_ba_case(cfg, spec, map_np, inputs, local, draws, iters, solver):
+def kf_ba_case(cfg, spec, map_np, inputs, local, draws, iters, solver,
+               schur_interval=1):
     """parallel/distributed_ba.make_distributed_ba on this rank's own
-    slots (``local``: rank -> (colors, depths))."""
+    slots (``local``: rank -> (colors, depths)), solving on every
+    ``schur_interval``-th iteration under schur."""
     import torch
 
     from myslam_torch.core.sampling import ReplayDraws
@@ -203,7 +212,8 @@ def kf_ba_case(cfg, spec, map_np, inputs, local, draws, iters, solver):
     distributed.reset_counts()
     ms = _map(map_np)
     step = make_distributed_ba(cfg, _scene(spec), Camera.from_cfg(cfg),
-                               iters=iters, pose_solver=solver)
+                               iters=iters, pose_solver=solver,
+                               schur_interval=schur_interval)
     colors, depths = (torch.as_tensor(a) for a in
                       local[distributed.rank()])
     t = {k: torch.as_tensor(v) for k, v in inputs.items()}
@@ -282,13 +292,12 @@ def window_case(cfg, spec, map_np, cache_np, inputs, draws, iters,
 
 
 def kf_frame_case(cfg, spec, map_np, store_np, packets, draws, iters,
-                  solver, solve=None):
+                  solver):
     """parallel/distributed_ba.make_kf_frame_mapper on this rank over a
     store sharded over the ranks (each rank fills its own slots), one
     call per packet in order (each admitted at the store's count), all
     from one replayed draw list: per frame the losses, the trajectory
-    and the store's poses; at the end the map and this rank's imagery.
-    ``solve``: the mapper's ``schur_interval`` and ``lm_damping``."""
+    and the store's poses; at the end the map and this rank's imagery."""
     import torch
 
     from myslam_torch.core.sampling import ReplayDraws
@@ -316,7 +325,7 @@ def kf_frame_case(cfg, spec, map_np, store_np, packets, draws, iters,
                                     cap - 1)
     mapper = make_kf_frame_mapper(cfg, _scene(spec), cam, selector, w_max,
                                   cap - 1, importance=False,
-                                  pose_solver=solver, **(solve or {}))
+                                  pose_solver=solver)
     ms = _map(map_np)
     est = torch.as_tensor(store_np["est"]).clone()
     replay = ReplayDraws(draws)
