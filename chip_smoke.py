@@ -266,7 +266,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -512,20 +511,6 @@ def grid_sample_features(planes, layout, p_nor):
     return torch.cat(feats, dim=-1)
 
 
-def spills(build_log: str) -> dict:
-    """Kernels whose ptxas report (-Xptxas -v) shows spill stores or
-    loads: {mangled name: report line}."""
-    out, fn = {}, None
-    for ln in build_log.splitlines():
-        if "Function properties for" in ln:
-            fn = ln.split("Function properties for")[-1].strip()
-        elif "spill" in ln and fn is not None:
-            if any(int(w) for w in re.findall(r"(\d+) bytes spill", ln)):
-                out[fn] = ln.strip()
-            fn = None
-    return out
-
-
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     """The least time for the work on the card, and what sets it."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -724,27 +709,7 @@ def check_kernels(cfg, layouts, cases=KERNEL_CASES,
     return records
 
 
-def band_rows(band, p_nor) -> tuple[int, int, int]:
-    """(distinct band rows the owned points touch, owned (point, plane)
-    pairs, (point, level) pairs with an owned plane: the gbar rows the
-    backward needs) of these points on one shard's band."""
-    import torch
-
-    from myslam_torch.ops import cuda_sample
-
-    p = p_nor.detach().float().cpu()
-    touched = owned_pairs = 0
-    levels = torch.zeros((band.n_levels, p.shape[0]), dtype=torch.bool)
-    for lvl, _, au, av, H, W, off, y_lo, bh in band.planes():
-        row, owned, *_ = cuda_sample.band_coords(p, au, av, H, W, off, y_lo,
-                                                 bh, band.total_rows)
-        touched += int(torch.unique(row[owned]).numel())
-        owned_pairs += int(owned.sum())
-        levels[lvl] |= owned
-    return touched, owned_pairs, int(levels.sum())
-
-
-def check_banded(cfg, layout, n_bands: int = 2) -> dict:
+def check_banded(cfg, layout, unbanded_bwd: dict, n_bands: int = 2) -> dict:
     """Banded K1 and K2 (the map shards' sample) against their plain
     banded versions at the mapping SDF sample on the loop's ray-ordered
     points (160,000), on each of ``n_bands`` bands of the SDF atlas's
@@ -754,12 +719,16 @@ def check_banded(cfg, layout, n_bands: int = 2) -> dict:
     touched and the output once; K2: gbar of the (point, level) pairs
     with an owned plane, the points, p_grad, the owned rows read and
     their gradient written; 2 and 7 f32 operations per owned (point,
-    plane, lane))."""
+    plane, lane)).  Beside them: the points banded K2 walks on each band
+    (those with an owned level) and the vector reductions its quad
+    gradient issues (``row_updates``), its ms without the quad gradient,
+    its ptxas registers, shared memory and spills, and the unbanded K2's
+    ms on the same points (``unbanded_bwd``, phase kernels' record)."""
     import torch
 
     from myslam_torch.ops import cuda_sample
-    from myslam_torch.parallel import plane_shard as tps
-    from myslam_torch.tools.bench_sample_bwd import loop_points
+    from myslam_torch.tools.bench_sample_bwd import band_ownership, \
+        band_quads, banded_row_updates, loop_points, ptxas_report
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -770,25 +739,21 @@ def check_banded(cfg, layout, n_bands: int = 2) -> dict:
     atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
                                device=dev)
     gbar = torch.randn((n, L * C4), generator=gen, device=dev)
-    ts = tps.ShardedPlaneLayout(layout, n_bands)
+    ts, quads = band_quads(layout, atlas, n_bands, torch.bfloat16)
     rows = ts.local_rows
-    sharded = torch.as_tensor(ts.shard_atlas(atlas.cpu().numpy())).to(dev)
     bands, fwd_sum = [], 0
-    for d in range(n_bands):
-        last = d == n_bands - 1
-        nxt = sharded[(d if last else d + 1) * rows:][:rows]
-        quad = tps.pack_local(sharded[d * rows:(d + 1) * rows],
-                              tps.first_rows(nxt, ts), ts, last).to(
-            torch.bfloat16).contiguous()
-        band = ts.band(d)
+    for d, (band, quad) in enumerate(quads):
         out = cuda_sample.plane_sample_fwd_banded(quad, band, p_nor)
         ref = cuda_sample.plane_sample_fwd_banded_ref(quad, band, p_nor)
         qg, pg = cuda_sample.plane_sample_bwd_banded(gbar, quad, band, p_nor)
+        _, pg_only = cuda_sample.plane_sample_bwd_banded(
+            gbar, quad, band, p_nor, need_quad_grad=False)
         rqg, rpg = cuda_sample.plane_sample_bwd_banded_ref(gbar, quad, band,
                                                            p_nor)
         torch.cuda.synchronize()
         errs = {what: scaled_err(got, want) for what, got, want in (
-            ("fwd", out, ref), ("quad_grad", qg, rqg), ("p_grad", pg, rpg))}
+            ("fwd", out, ref), ("quad_grad", qg, rqg), ("p_grad", pg, rpg),
+            ("p_grad without quad_grad", pg_only, rpg))}
         # Tolerance: K1's and K2's (the same products, FMA-contracted,
         # summed in another order): 1e-5 of the largest value.
         for what, (_, rel) in errs.items():
@@ -796,7 +761,10 @@ def check_banded(cfg, layout, n_bands: int = 2) -> dict:
                 raise AssertionError(f"banded {what}, band {d}: error "
                                      f"{rel:.3e} of the largest value")
         fwd_sum = fwd_sum + out
-        touched, pairs, owned_levels = band_rows(band, p_nor)
+        own = band_ownership(band, p_nor)
+        touched, pairs, owned_levels = (own["rows_touched"],
+                                        own["owned_point_planes"],
+                                        own["owned_point_levels"])
         f_bytes = n * 3 * 4 + touched * C4 * 2 + n * L * C4 * 4
         # K2 needs gbar only where the point owns a plane of the level.
         b_bytes = (owned_levels * C4 * 4 + 2 * n * 3 * 4
@@ -804,8 +772,8 @@ def check_banded(cfg, layout, n_bands: int = 2) -> dict:
         f_ms, f_by = bound_ms(f_bytes, 2 * pairs * C4)
         b_ms, b_by = bound_ms(b_bytes, 7 * pairs * C4)
         bands.append({
-            "band": d, "band_rows": rows, "rows_touched": touched,
-            "owned_point_planes": pairs, "owned_point_levels": owned_levels,
+            "band": d, "band_rows": rows, **own,
+            "row_updates": banded_row_updates(band, p_nor),
             "fwd": {"max_abs_err": errs["fwd"][0], **kernel_times(
                 lambda: cuda_sample.plane_sample_fwd_banded(quad, band,
                                                             p_nor)),
@@ -822,8 +790,13 @@ def check_banded(cfg, layout, n_bands: int = 2) -> dict:
                         lambda: cuda_sample.plane_sample_bwd_banded_ref(
                             gbar, quad, band, p_nor), reps=5),
                     "library_ms": None, "bytes": b_bytes, "bound_ms": b_ms,
-                    "bound_by": b_by}})
-        del out, ref, qg, pg, rqg, rpg
+                    "bound_by": b_by},
+            # Without the quad gradient (no atomics): the same gbar read.
+            "bwd_no_quad_grad": {
+                "max_abs_err": errs["p_grad without quad_grad"][0],
+                **kernel_times(lambda: cuda_sample.plane_sample_bwd_banded(
+                    gbar, quad, band, p_nor, need_quad_grad=False))}})
+        del out, ref, qg, pg, pg_only, rqg, rpg
     from myslam_torch.ops.plane_sample import pack_quad
 
     whole = cuda_sample.plane_sample_fwd_ref(
@@ -835,7 +808,10 @@ def check_banded(cfg, layout, n_bands: int = 2) -> dict:
     out = {"phase": "kernels", "case": "banded", "layout": "sdf",
            "rows": layout.total_rows, "points": n, "bands": n_bands,
            "quad_dtype": "bfloat16", "sum_rel_err": sum_rel,
-           "per_band": bands}
+           "per_band": bands,
+           "bwd_ptxas": ptxas_report(cuda_sample.BUILD_LOG,
+                                     "plane_sample_bwd_banded"),
+           "unbanded_bwd": {k: unbanded_bwd[k] for k in ("ms", "ms_graph")}}
     emit(out)
     return out
 
@@ -2914,7 +2890,8 @@ def main(argv=None) -> int:
         return 2
     try:
         from myslam_torch.ops import cuda_sample
-        from myslam_torch.tools.bench_sample_bwd import layouts
+        from myslam_torch.tools.bench_sample_bwd import layouts, \
+            ptxas_report
         from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -2926,7 +2903,8 @@ def main(argv=None) -> int:
     ptxas = [ln.strip() for ln in cuda_sample.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln
              or "Function properties" in ln]
-    spilled = spills(cuda_sample.BUILD_LOG)
+    spilled = {fn: rec for fn, rec in ptxas_report(
+        cuda_sample.BUILD_LOG, "").items() if rec.get("spill_bytes")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": library, "ptxas": ptxas, "spills": spilled})
     # K1, K2 and K3 (plane_sample_fwd, _bwd, _fwd_smem kernels).
@@ -2936,7 +2914,9 @@ def main(argv=None) -> int:
     cfg = load_config("configs/Synthetic/room.yaml", DEFAULT_CONFIG)
     cfg["data"]["n_frames"] = N_FRAMES
     cases = check_kernels(cfg, layouts(cfg))
-    banded_case = check_banded(cfg, layouts(cfg)["sdf"])
+    head = next(c for c in cases if c["layout"] == "sdf"
+                and c["quad_dtype"] == "bfloat16" and "fwd" in c)
+    banded_case = check_banded(cfg, layouts(cfg)["sdf"], head["bwd_rays"])
     mesh_case = check_mesh_chunk(cfg, layouts(cfg)["sdf"])
     slam, system = run_slam(cfg)
     emit(slam)
@@ -3000,10 +2980,8 @@ def main(argv=None) -> int:
 
     # The kernels line: each kernel at the heaviest call of its path, the
     # mapping SDF sample (160,000 points) on bf16 quads (map_bf16 in
-    # configs/Synthetic/room.yaml and in tracking).  K1/K2 launches are the
-    # SLAM loop's, K3's the bench_scatter phase's.
-    head = next(c for c in cases if c["layout"] == "sdf"
-                and c["quad_dtype"] == "bfloat16" and "fwd" in c)
+    # configs/Synthetic/room.yaml and in tracking; ``head`` above).  K1/K2
+    # launches are the SLAM loop's, K3's the bench_scatter phase's.
     # The records each kernel was checked in (both point orders).
     checked = {"fwd": ("fwd", "fwd_rays"), "bwd": ("bwd", "bwd_rays"),
                "smem": ("smem", "smem_rays")}
@@ -3116,12 +3094,14 @@ def main(argv=None) -> int:
     for name, key in (("plane_sample_fwd_banded", "fwd"),
                       ("plane_sample_bwd_banded", "bwd")):
         per = [b[key] for b in banded_case["per_band"]]
+        errs = per + [b["bwd_no_quad_grad"] for b in banded_case["per_band"]
+                      if key == "bwd"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "myslam_torch/csrc/plane_sample.cu",
             "replaces": "myslam_tpu/parallel/plane_shard.py:214",
             "launches": shards["launches"][0][name],
-            "max_abs_err": max(p["max_abs_err"] for p in per),
+            "max_abs_err": max(p["max_abs_err"] for p in errs),
             "ms": per[0]["ms"], "plain_ms": per[0]["plain_ms"],
             "bound_ms": per[0]["bound_ms"], "bound_by": per[0]["bound_by"],
             "library_ms": None, "ms_graph": per[0]["ms_graph"],

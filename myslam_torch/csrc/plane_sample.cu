@@ -85,15 +85,15 @@
 // changes from run to run.  No global scratch memory, no
 // synchronisation; the launch is one kernel on the caller's stream.
 //
-// Banded K1 / K2 (plane_sample_fwd_banded, plane_sample_bwd_banded) are
-// the same walks over one map shard's band atlas (parallel/plane_shard.py,
-// the counterpart of myslam_tpu/parallel/plane_shard.py's owned-row
-// sample, which JAX runs as a plain XLA gather): the band table adds each
-// plane's (y_lo, band_h), a point whose cell row lies outside its plane's
-// band reads a zero row (forward) and scatters nothing (backward), and the
-// row index is the band's (RowBand in plane_common.cuh).  They are the
-// kernels' RowBand instantiations; the unbanded kernels are the NoBand
-// ones, the same code as before the band window.
+// Banded K1 / K2 (plane_sample_fwd_banded, plane_sample_bwd_banded) work
+// on one map shard's band atlas (parallel/plane_shard.py, the counterpart
+// of myslam_tpu/parallel/plane_shard.py's owned-row sample, which JAX
+// runs as a plain XLA gather): the band table adds each plane's (y_lo,
+// band_h), a point whose cell row lies outside its plane's band reads a
+// zero row (forward) and scatters nothing (backward), and the row index
+// is the band's (RowBand in plane_common.cuh).  Banded K1 is K1's walk,
+// its RowBand instantiation; banded K2 has a design of its own, which
+// walks only the points the band owns (plane_sample_bwd_banded_kernel).
 
 #include "plane_common.cuh"
 
@@ -181,6 +181,28 @@ plane_sample_fwd_banded_kernel(const float* __restrict__ p_nor,
   fwd_body<T, NL>(p_nor, quad, out, n, c4, run, t, band);
 }
 
+// Adds a merged run's quad gradient to this lane's 4 channels of its row
+// and clears the run: one 16-byte vector reduction per lane (K2's items
+// 1-2; banded K2's too).
+__device__ __forceinline__ void flush_row(float* dst, float (&acc)[4]) {
+  atomicAdd(reinterpret_cast<float4*>(dst),
+            make_float4(acc[0], acc[1], acc[2], acc[3]));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = 0.0f;
+}
+
+// Lanes 0, 8 and 16 hold the warp's sums of the 3 axes (warp_sum3): the
+// point's p_grad row, set on the first 128-channel pass and added to on
+// later ones.  No atomics: one warp owns the point.
+__device__ __forceinline__ void store_p_grad(float* __restrict__ p_grad,
+                                             int pt, int base, float s,
+                                             int lane) {
+  if ((lane & 7) == 0 && lane < 24) {
+    float* dst = p_grad + 3 * (size_t)pt + (lane >> 3);
+    *dst = base == 0 ? s : *dst + s;
+  }
+}
+
 // K2: quad_grad[row, c] += gbar[n, l*c4 + c] * fx(c) * fy(c)  (if asked)
 //     p_grad[n, au] += in_x * 0.5(W-1) * sum_c quad[row,c] gbar[n,c] sx fy
 //     p_grad[n, av] += in_y * 0.5(H-1) * sum_c quad[row,c] gbar[n,c] sy fx
@@ -188,18 +210,14 @@ plane_sample_fwd_banded_kernel(const float* __restrict__ p_nor,
 // (one pass for the loop's c4 = 128; later passes add to p_grad), in
 // tiles of BWD_TILE points whose plane coordinates it computes first,
 // one point per lane, into shared memory.
-//
-// Banded (RowBand): a plane's UNOWNED points hold a zero row, so they add
-// nothing to p_grad, and they accumulate nothing, so a flush never sees
-// their gbar.
-template <typename T, int NL, bool QUAD_GRAD, class Band>
-__device__ __forceinline__ void bwd_body(const float* __restrict__ gbar,
-                                         const float* __restrict__ p_nor,
-                                         const T* __restrict__ quad,
-                                         float* __restrict__ quad_grad,
-                                         float* __restrict__ p_grad, int n,
-                                         int c4, int run, const PlaneTable& t,
-                                         const Band& band) {
+template <typename T, int NL, bool QUAD_GRAD>
+__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_MIN_BLOCKS(NL))
+plane_sample_bwd_kernel(const float* __restrict__ gbar,
+                        const float* __restrict__ p_nor,
+                        const T* __restrict__ quad,
+                        float* __restrict__ quad_grad,
+                        float* __restrict__ p_grad, int n, int c4, int run,
+                        PlaneTable t) {
   constexpr int P = 3 * NL;
   // Per warp, per (point, plane) of a tile: row, wx, wy, in-range bits.
   __shared__ float4 coords[BWD_WARPS][BWD_TILE][P];
@@ -229,7 +247,7 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gbar,
     load_gbar<NL>(gl, gbar + first * stride + c, c4, on);
     for (int tile = first; tile < end; tile += BWD_TILE) {
       const int tn = min(BWD_TILE, end - tile);
-      tile_coords<P>(coords[warp], p_nor, tile, tn, lane, t, band);
+      tile_coords<P>(coords[warp], p_nor, tile, tn, lane, t);
       for (int i = 0; i < tn; ++i) {
         const int pt = tile + i;
         // Rows first, so that every plane's row load is in flight at once.
@@ -237,22 +255,11 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gbar,
         for (int k = 0; k < P; ++k) {
           const int r = __float_as_int(coords[warp][i][k].x);
           if (r != row[k]) {  // warp-uniform: every lane has this point
-            if (QUAD_GRAD && row[k] >= 0 && on) {  // item 1: flush the run
-              atomicAdd(reinterpret_cast<float4*>(
-                            quad_grad + (size_t)row[k] * c4 + c),
-                        make_float4(acc[k][0], acc[k][1], acc[k][2],
-                                    acc[k][3]));  // item 2: one vector red
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[k][j] = 0.0f;
-            }
+            if (QUAD_GRAD && row[k] >= 0 && on)  // item 1: flush the run
+              flush_row(quad_grad + (size_t)row[k] * c4 + c,
+                        acc[k]);  // item 2
             row[k] = r;
-            if constexpr (Band::banded) {
-              if (on)
-                held[k] = r >= 0 ? Row4<T>::load(quad + (size_t)r * c4 + c)
-                                 : Row4<T>::zero();
-            } else {
-              if (on) held[k] = Row4<T>::load(quad + (size_t)r * c4 + c);
-            }
+            if (on) held[k] = Row4<T>::load(quad + (size_t)r * c4 + c);
           }
         }
         float pg[3] = {0.0f, 0.0f, 0.0f};
@@ -265,10 +272,9 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gbar,
           const float fx = 0.5f + (cd.y - 0.5f) * sx;
           const float fy = 0.5f + (cd.z - 0.5f) * sy;
           float ggl = 0.0f;  // sum_c quad[row, c] gbar[n, c] on this lane
-          const bool owned = !Band::banded || row[k] >= 0;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            if (QUAD_GRAD && owned) acc[k][j] += gl[l][j] * (fx * fy);
+            if (QUAD_GRAD) acc[k][j] += gl[l][j] * (fx * fy);
             ggl += g[j] * gl[l][j];
           }
           // Item 4: fold into the axes on each lane (sx, sy, fx, fy are
@@ -281,47 +287,263 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gbar,
         }
         if (pt + 1 < end)  // item 5: in flight while the warp sums
           load_gbar<NL>(gl, gbar + (pt + 1) * stride + c, c4, on);
-        const float s = warp_sum3(pg, lane);
-        if ((lane & 7) == 0 && lane < 24) {
-          float* dst = p_grad + 3 * (size_t)pt + (lane >> 3);
-          *dst = base == 0 ? s : *dst + s;
-        }
+        store_p_grad(p_grad, pt, base, warp_sum3(pg, lane), lane);
       }
     }
     if (QUAD_GRAD && on) {
 #pragma unroll
       for (int k = 0; k < P; ++k)
         if (row[k] >= 0)
-          atomicAdd(reinterpret_cast<float4*>(
-                        quad_grad + (size_t)row[k] * c4 + c),
-                    make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]));
+          flush_row(quad_grad + (size_t)row[k] * c4 + c, acc[k]);
     }
   }
 }
 
-template <typename T, int NL, bool QUAD_GRAD>
-__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_MIN_BLOCKS(NL))
-plane_sample_bwd_kernel(const float* __restrict__ gbar,
-                        const float* __restrict__ p_nor,
-                        const T* __restrict__ quad,
-                        float* __restrict__ quad_grad,
-                        float* __restrict__ p_grad, int n, int c4, int run,
-                        PlaneTable t) {
-  bwd_body<T, NL, QUAD_GRAD>(gbar, p_nor, quad, quad_grad, p_grad, n, c4,
-                             run, t, NoBand());
+// Banded K2 over one map shard's band atlas (RowBand).  It computes what
+// K2 computes, restricted to the (point, plane) pairs whose cell row lies
+// in the band: the band rows' quad gradient, and for every point this
+// shard's part of p_grad (zero where the point owns no plane).  The bytes
+// it must move are the gbar of the (point, level) pairs the band owns:
+// 36 % of the mapping SDF sample's on band 1 of 2, 93 % on band 0.  K2's
+// walk visits every point whatever the band owns, and on the card a
+// step's instructions, not the gbar bytes, set its pace (a deeper gbar
+// stream that added work per step measured slower); with the quad
+// gradient, its vector reductions add their own time (one per merged
+// run and lane: about 320,000 runs of 512 bytes on band 0 of the loop's
+// points, as many bytes as the gbar).  This design:
+//   1. Compaction inside the launch.  A block takes BANDED_CHUNK
+//      consecutive points, one per thread: each thread computes its
+//      point's plane coordinates (RowBand: UNOWNED outside the band) and
+//      its owned-level mask (a level counts where one of its 3 planes is
+//      owned).  A ballot per warp, a popcount and the scan of the warps'
+//      counts in shared memory give each owned point its place in the
+//      chunk's list, in point order (the loop's ray order, so a merged
+//      run still merges).  A point with no owned level gets a zero p_grad
+//      row there and nothing else.  No global scratch, no second launch,
+//      nothing read back.
+//   2. The same thread stores its listed point's per-plane scalars once,
+//      which K2's lanes each recompute: the row's first element (row *
+//      c4, a 32-bit offset from the lane's channels), wx - 1/2, wy - 1/2
+//      and the half extents times the in-range masks.  A lane's corner
+//      then costs 2 FFMAs and 2 FMULs a plane for p_grad, with no
+//      predicates.
+//   3. The block's warps split the list into contiguous segments and walk
+//      only the listed points, and of each only its owned planes.
+//   4. gbar streams through a ring of BANDED_STAGES stages in shared
+//      memory per warp, filled by cp.async (16 bytes a lane, only the
+//      owned levels' 512-byte slices, past L1) BANDED_STAGES - 1 points
+//      ahead of the point the warp computes on.  Each lane reads back
+//      only the bytes it copied, so the ring needs no barrier.  (Loading
+//      the next point's gbar into registers, as K2 does, measured 2-4 %
+//      faster on the card: the stream is not what holds the walk.)
+//   5. Where every lane carries channels (c4 a multiple of 128, the
+//      loop's case: FULL), no instruction tests the lane.
+//   6. From K2: the held quad rows in registers, the float4 atomic flush
+//      per merged run (a run now also spans the unlisted points between
+//      two listed ones) and the transposing butterfly for p_grad.
+// Shared memory, static: 33 KB at 2 levels, 47 KB at 4.
+#define BANDED_WARPS 4
+#define BANDED_CHUNK (BANDED_WARPS * 32)
+#define BANDED_STAGES(NL) ((NL) <= 2 ? 4 : 2)
+// Blocks per SM that ptxas must fit in registers: 4 (at most 128
+// registers) for 1-2 levels, 2 for 3-4.
+#define BANDED_MIN_BLOCKS(NL) ((NL) <= 2 ? 4 : 2)
+
+template <int NL>
+struct BandedTile {
+  static constexpr int P = 3 * NL;
+  static constexpr int S = BANDED_STAGES(NL);
+  // Per list entry and plane: the row's first element, row * c4 (-1
+  // outside the band), and (wx - 1/2, wy - 1/2, in_x * (W-1)/2,
+  // in_y * (H-1)/2).
+  int rows[BANDED_CHUNK][P];
+  float4 frac[BANDED_CHUNK][P];
+  float4 gbar[BANDED_WARPS][S][NL][32];
+  int list[BANDED_CHUNK];  // (thread << 4) | owned-level mask
+  int counts[BANDED_WARPS];
+};
+
+__device__ __forceinline__ void cp_async_cg16(void* smem, const void* src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Banded K2: the same walk over a band atlas (RowBand).
-template <typename T, int NL, bool QUAD_GRAD>
-__global__ void __launch_bounds__(BWD_WARPS * 32, BWD_MIN_BLOCKS(NL))
+template <typename T, int NL, bool QUAD_GRAD, bool FULL>
+__global__ void __launch_bounds__(BANDED_WARPS * 32, BANDED_MIN_BLOCKS(NL))
 plane_sample_bwd_banded_kernel(const float* __restrict__ gbar,
                                const float* __restrict__ p_nor,
                                const T* __restrict__ quad,
                                float* __restrict__ quad_grad,
                                float* __restrict__ p_grad, int n, int c4,
-                               int run, PlaneTable t, RowBand band) {
-  bwd_body<T, NL, QUAD_GRAD>(gbar, p_nor, quad, quad_grad, p_grad, n, c4,
-                             run, t, band);
+                               PlaneTable t, RowBand band) {
+  constexpr int P = BandedTile<NL>::P;
+  constexpr int S = BandedTile<NL>::S;
+  __shared__ BandedTile<NL> sm;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chunk = blockIdx.x * BANDED_CHUNK;
+
+  // Item 1: the chunk's list.
+  const int pt = chunk + threadIdx.x;
+  float4 pc[P];
+  int mask = 0;
+  if (pt < n) {
+    point_coords<P>(p_nor, pt, t, pc, band);
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (__float_as_int(pc[k].x) >= 0) mask |= 1 << (k / 3);
+    if (mask == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) p_grad[3 * (size_t)pt + a] = 0.0f;
+    }
+  }
+  const unsigned owned = __ballot_sync(FULL_MASK, mask != 0);
+  if (lane == 0) sm.counts[warp] = __popc(owned);
+  __syncthreads();
+  int pos = __popc(owned & ((1u << lane) - 1u));
+  int len = 0;
+#pragma unroll
+  for (int w = 0; w < BANDED_WARPS; ++w) {
+    const int cnt = sm.counts[w];
+    pos += w < warp ? cnt : 0;
+    len += cnt;
+  }
+  if (mask != 0) {  // item 2
+    sm.list[pos] = (threadIdx.x << 4) | mask;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int in = __float_as_int(pc[k].w);
+      const int r = __float_as_int(pc[k].x);
+      sm.rows[pos][k] = r >= 0 ? r * c4 : -1;
+      sm.frac[pos][k] = make_float4(
+          pc[k].y - 0.5f, pc[k].z - 0.5f,
+          (in & 1) ? 0.5f * ((float)t.W[k] - 1.0f) : 0.0f,
+          (in & 2) ? 0.5f * ((float)t.H[k] - 1.0f) : 0.0f);
+    }
+  }
+  __syncthreads();
+
+  // Item 3: this warp's segment of the list.
+  const int e0 = warp * len / BANDED_WARPS;
+  const int e1 = (warp + 1) * len / BANDED_WARPS;
+  if (e0 == e1) return;  // warp-uniform, after the block's last barrier
+  const int C = c4 >> 2;
+  const size_t stride = (size_t)NL * c4;
+  for (int base = 0; base < c4; base += 128) {
+    const int c = base + lane * 4;
+    const bool on = FULL || c < c4;  // lanes past a row narrower than 128
+    const int corner = c / C;
+    const float sx = (corner & 1) ? 1.0f : -1.0f;
+    const float sy = (corner >= 2) ? 1.0f : -1.0f;
+    const float sxy = sx * sy;
+    // This lane's channels of row 0: a row is 32-bit offsets away.
+    const T* __restrict__ quad_c = quad + c;
+    float* __restrict__ grad_c = QUAD_GRAD ? quad_grad + c : nullptr;
+    // Item 4: entry e's owned gbar slices into its stage, one commit
+    // group per entry (empty past the segment's end).
+    auto fetch = [&](int e, int stage) {
+      if (e < e1 && on) {
+        const int item = sm.list[e];
+        const float* src =
+            gbar + (size_t)(chunk + (item >> 4)) * stride + c;
+#pragma unroll
+        for (int l = 0; l < NL; ++l)
+          if (item & (1 << l))
+            cp_async_cg16(&sm.gbar[warp][stage][l][lane], src + l * c4);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) fetch(e0 + s, s);
+    int row[P];
+    typename Row4<T>::V held[P];
+    float acc[P][4];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      row[k] = -1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[k][i] = 0.0f;
+    }
+    for (int e = e0, stage = 0; e < e1; ++e, stage = (stage + 1) % S) {
+      fetch(e + S - 1, (stage + S - 1) % S);
+      cp_async_wait<S - 1>();  // entry e's group has landed
+      const int item = sm.list[e];
+      int r[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) r[k] = sm.rows[e][k];
+      // An unowned plane keeps its held row and its run.
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (r[k] >= 0 && r[k] != row[k]) {  // warp-uniform
+          if (QUAD_GRAD && row[k] >= 0 && on)
+            flush_row(grad_c + row[k], acc[k]);
+          row[k] = r[k];
+          if (on) held[k] = Row4<T>::load(quad_c + r[k]);
+        }
+      }
+      float gl[NL][4];  // an unowned level's slice is never used
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const float4 v = on ? sm.gbar[warp][stage][l][lane]
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        gl[l][0] = v.x; gl[l][1] = v.y; gl[l][2] = v.z; gl[l][3] = v.w;
+      }
+      float pg[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (r[k] < 0) continue;  // warp-uniform
+        const float4 f = sm.frac[e][k];
+        float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (on) Row4<T>::unpack(held[k], g);
+        const float* gk = gl[k / 3];
+        float ggl = 0.0f;  // sum_c quad[row, c] gbar[n, c] on this lane
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ggl += g[j] * gk[j];
+        // sx * fy and sy * fx, fx = 1/2 + (wx - 1/2) sx: this lane's
+        // corner, folded into the plane's axes (K2's item 4).
+        pg[axis_u(k % 3)] += ggl * (fmaf(f.y, sxy, 0.5f * sx) * f.z);
+        pg[axis_v(k % 3)] += ggl * (fmaf(f.x, sxy, 0.5f * sy) * f.w);
+        if (QUAD_GRAD) {
+          const float w = fmaf(f.x, sx, 0.5f) * fmaf(f.y, sy, 0.5f);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[k][j] += gk[j] * w;
+        }
+      }
+      store_p_grad(p_grad, chunk + (item >> 4), base, warp_sum3(pg, lane),
+                   lane);
+    }
+    cp_async_wait<0>();  // the segment's trailing groups are empty
+    if (QUAD_GRAD && on) {
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (row[k] >= 0) flush_row(grad_c + row[k], acc[k]);
+    }
+  }
+}
+
+template <typename T, int NL, bool QUAD_GRAD>
+static void launch_bwd_banded(dim3 grid, cudaStream_t s, const float* gbar,
+                              const float* p_nor, const T* quad,
+                              float* quad_grad, float* p_grad, int n, int c4,
+                              const PlaneTable& t, const RowBand& band) {
+  const dim3 block(BANDED_WARPS * 32);
+  if (c4 % 128 == 0)
+    plane_sample_bwd_banded_kernel<T, NL, QUAD_GRAD, true>
+        <<<grid, block, 0, s>>>(gbar, p_nor, quad, quad_grad, p_grad, n, c4,
+                                t, band);
+  else
+    plane_sample_bwd_banded_kernel<T, NL, QUAD_GRAD, false>
+        <<<grid, block, 0, s>>>(gbar, p_nor, quad, quad_grad, p_grad, n, c4,
+                                t, band);
 }
 
 // The kernels' launches by level count: `band` null launches the
@@ -331,21 +553,22 @@ static void launch_bwd(dim3 grid, cudaStream_t s, const float* gbar,
                        const float* p_nor, const T* quad, float* quad_grad,
                        float* p_grad, int n, int c4, int run,
                        const PlaneTable& t, const RowBand* band) {
-  const dim3 block(BWD_WARPS * 32);
   if (band != nullptr) {
     if (quad_grad != nullptr)
-      plane_sample_bwd_banded_kernel<T, NL, true><<<grid, block, 0, s>>>(
-          gbar, p_nor, quad, quad_grad, p_grad, n, c4, run, t, *band);
+      launch_bwd_banded<T, NL, true>(grid, s, gbar, p_nor, quad, quad_grad,
+                                     p_grad, n, c4, t, *band);
     else
-      plane_sample_bwd_banded_kernel<T, NL, false><<<grid, block, 0, s>>>(
-          gbar, p_nor, quad, nullptr, p_grad, n, c4, run, t, *band);
-  } else if (quad_grad != nullptr) {
+      launch_bwd_banded<T, NL, false>(grid, s, gbar, p_nor, quad, nullptr,
+                                      p_grad, n, c4, t, *band);
+    return;
+  }
+  const dim3 block(BWD_WARPS * 32);
+  if (quad_grad != nullptr)
     plane_sample_bwd_kernel<T, NL, true><<<grid, block, 0, s>>>(
         gbar, p_nor, quad, quad_grad, p_grad, n, c4, run, t);
-  } else {
+  else
     plane_sample_bwd_kernel<T, NL, false><<<grid, block, 0, s>>>(
         gbar, p_nor, quad, nullptr, p_grad, n, c4, run, t);
-  }
 }
 
 template <typename T>
@@ -404,8 +627,10 @@ static void launch_fwd_levels(int n_levels, dim3 grid, cudaStream_t s,
 // the band's in the band atlas.  Returns the launch's cudaGetLastError()
 // (0 on success); outputs are written on `stream`.  `run`, `warps` and
 // `blocks` are the wrapper's launch plan: warp w of the grid walks points
-// [w*run, min((w+1)*run, n)); the plan must cover every point with no
-// empty block, and a forward run is at most one tile.
+// [w*run, min((w+1)*run, n)), and a forward run is at most one tile;
+// banded K2's `run` is the block's chunk, block b compacting points
+// [b*run, min((b+1)*run, n)).  The plan must cover every point with no
+// empty block.
 static int fwd_entry(const float* p_nor, const void* quad, int quad_bf16,
                      float* out, int n, int c4, int n_levels,
                      const int* planes, const int* bands, int run,
@@ -431,6 +656,16 @@ static int fwd_entry(const float* p_nor, const void* quad, int quad_bf16,
   return (int)cudaGetLastError();
 }
 
+// Banded K2 addresses a row's elements by 32-bit offsets (row * c4).
+static bool offsets_fit(const PlaneTable& t, const RowBand& b, int n_levels,
+                        int c4) {
+  for (int k = 0; k < 3 * n_levels; ++k)
+    if (((long long)t.off[k] + (long long)b.band_h[k] * t.W[k]) * c4 >
+        0x7fffffffLL)
+      return false;
+  return true;
+}
+
 static int bwd_entry(const float* gbar, const float* p_nor, const void* quad,
                      int quad_bf16, float* quad_grad, float* p_grad, int n,
                      int c4, int n_levels, const int* planes,
@@ -438,11 +673,14 @@ static int bwd_entry(const float* gbar, const float* p_nor, const void* quad,
                      void* stream) {
   PlaneTable t;
   RowBand b;
-  const long long per_block = (long long)warps * run;
+  const bool banded = bands != nullptr;
+  const long long per_block = banded ? run : (long long)warps * run;
   if (n <= 0 || c4 <= 0 || c4 % 16 != 0 ||
       !fill_table(&t, planes, n_levels) ||
-      (bands != nullptr && !fill_band(&b, bands, n_levels)) ||
-      warps != BWD_WARPS || run <= 0 || blocks <= 0 ||
+      (banded && !fill_band(&b, bands, n_levels)) ||
+      warps != (banded ? BANDED_WARPS : BWD_WARPS) || run <= 0 ||
+      (banded && (run != BANDED_CHUNK || !offsets_fit(t, b, n_levels, c4))) ||
+      blocks <= 0 ||
       per_block * blocks < n || per_block * (blocks - 1) >= n)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -497,3 +735,4 @@ extern "C" int plane_sample_bwd_banded(const float* gbar, const float* p_nor,
   return bwd_entry(gbar, p_nor, quad, quad_bf16, quad_grad, p_grad, n, c4,
                    n_levels, planes, bands, run, warps, blocks, stream);
 }
+

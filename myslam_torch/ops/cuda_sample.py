@@ -10,10 +10,12 @@ Hopper counterpart of ``myslam_tpu/ops/pallas_sample.py``'s B1/B3
 forward, and K2, that of the hand-written VJP
 ``myslam_tpu/ops/plane_sample.py::_sample_fused_bwd``;
 ``plane_sample_smem.cu`` holds K3 (``ops/smem_sample.py``).  K1 and K2
-also come banded (``plane_sample_fwd_banded``, ``plane_sample_bwd_banded``):
-the same walks over one map shard's band atlas (a ``BandLayout``,
+also come banded (``plane_sample_fwd_banded``, ``plane_sample_bwd_banded``)
+over one map shard's band atlas (a ``BandLayout``,
 ``parallel/plane_shard.py``), where a point outside a plane's band reads
-nothing and scatters nothing.
+nothing and scatters nothing: banded K1 is K1's walk, banded K2 compacts
+each chunk of points to those the band owns and walks only those
+(``band_lists`` mirrors its lists).
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version below, a CUDA tensor launches the kernel or raises.
@@ -59,6 +61,12 @@ FWD_WARPS = 8
 # compile-time block (plane_sample.cu).
 BWD_RUN = 16
 BWD_WARPS = 8
+# Banded K2's launch: each block compacts a chunk of BWD_BANDED_CHUNK
+# consecutive points (one per thread of its BWD_BANDED_WARPS warps) to
+# those with an owned level, and its warps walk that list; both are the
+# kernel's compile-time constants (plane_sample.cu).
+BWD_BANDED_WARPS = 4
+BWD_BANDED_CHUNK = 32 * BWD_BANDED_WARPS
 
 _lib = None
 BUILD_LOG = ""
@@ -175,6 +183,37 @@ def band_coords(p_nor: torch.Tensor, au: int, av: int, H: int, W: int,
     owned = (yi >= y_lo) & (yi < y_lo + band_h)
     row = torch.clamp(off + (yi - y_lo) * W + (cell - yi * W), 0, rows - 1)
     return row, owned, wx, wy, in_x, in_y
+
+
+def band_lists(band: BandLayout, p_nor: torch.Tensor,
+               chunk: int = BWD_BANDED_CHUNK):
+    """The lists banded K2 builds and walks, computed as the kernel does:
+    block b takes points [b*chunk, (b+1)*chunk), one per thread; a warp's
+    ballot of the points with an owned level, its popcount and the scan
+    of the warps' counts place each such point in the block's list, in
+    point order.  Returns (points (blocks, chunk) int64, -1 past a
+    block's length; their level masks, 0 there; lengths (blocks,))."""
+    n = p_nor.shape[0]
+    blocks = -(-n // chunk)
+    # Bit l: the point owns a plane of level l (its cell row is in that
+    # plane's band).
+    mask = torch.zeros(blocks * chunk, dtype=torch.int64)
+    for lvl, _, au, av, H, W, off, y_lo, bh in band.planes():
+        owned = band_coords(p_nor, au, av, H, W, off, y_lo, bh,
+                            band.total_rows)[1]
+        mask[:n] |= owned.cpu().to(torch.int64) << lvl
+    flag = (mask != 0).view(blocks, chunk // 32, 32).to(torch.int64)
+    counts = flag.sum(-1)  # popcount of each warp's ballot
+    warp_off = torch.cumsum(counts, -1) - counts
+    pos = (warp_off[..., None] + torch.cumsum(flag, -1) - flag).view(
+        blocks, chunk)
+    lengths = counts.sum(-1)
+    points = torch.full((blocks, chunk), -1, dtype=torch.int64)
+    masks = torch.zeros((blocks, chunk), dtype=torch.int64)
+    b, t = torch.nonzero(flag.view(blocks, chunk), as_tuple=True)
+    points[b, pos[b, t]] = b * chunk + t
+    masks[b, pos[b, t]] = mask[b * chunk + t]
+    return points, masks, lengths
 
 
 def plane_sample_fwd_banded_ref(quad: torch.Tensor, band: BandLayout,
@@ -397,6 +436,14 @@ def bwd_launch_plan(n: int) -> tuple[int, int, int]:
     return BWD_RUN, BWD_WARPS, -(-warps // BWD_WARPS)
 
 
+def bwd_banded_launch_plan(n: int) -> tuple[int, int, int]:
+    """Banded K2's launch for n > 0 points: (points per block, warps per
+    block, blocks).  Block b compacts points [b*chunk, min((b+1)*chunk,
+    n)), so the plan covers every point once and leaves no block
+    empty."""
+    return BWD_BANDED_CHUNK, BWD_BANDED_WARPS, -(-n // BWD_BANDED_CHUNK)
+
+
 def plane_sample_fwd(quad: torch.Tensor, layout: PlaneLayout,
                      p_nor: torch.Tensor) -> torch.Tensor:
     """Tri-plane sample forward, (N, L*4C) float32.  CPU tensors: the
@@ -493,7 +540,8 @@ def plane_sample_bwd_banded(gbar: torch.Tensor, quad: torch.Tensor,
     """Backward over one shard's band atlas: (quad_grad (band rows, 4C)
     f32 or None, p_grad (N, 3) f32, this shard's part of the coordinate
     gradient).  CPU tensors: the plain version; CUDA tensors: banded
-    kernel K2 (the same launch plan as K2)."""
+    kernel K2 (each block walks the points of its chunk that own a level
+    of the band; ``bwd_banded_launch_plan``, ``band_lists``)."""
     if p_nor.device.type == "cpu" and quad.device.type == "cpu":
         return plane_sample_bwd_banded_ref(gbar, quad, band, p_nor,
                                            need_quad_grad)
@@ -510,14 +558,14 @@ def plane_sample_bwd_banded(gbar: torch.Tensor, quad: torch.Tensor,
         return quad_grad, p_grad
     lib = load()
     planes, bands = _band_tables(band)
-    run, warps, blocks = bwd_launch_plan(n)
+    chunk, warps, blocks = bwd_banded_launch_plan(n)
     err = lib.plane_sample_bwd_banded(
         gbar.data_ptr(), p_nor.data_ptr(), quad.data_ptr(),
         int(quad.dtype == torch.bfloat16),
         quad_grad.data_ptr() if need_quad_grad else None,
         p_grad.data_ptr(), n, C4, band.n_levels,
         ctypes.cast(planes, ctypes.c_void_p),
-        ctypes.cast(bands, ctypes.c_void_p), run, warps, blocks,
+        ctypes.cast(bands, ctypes.c_void_p), chunk, warps, blocks,
         torch.cuda.current_stream(p_nor.device).cuda_stream)
     _raise_on(err, "plane_sample_bwd_banded")
     LAUNCHES["plane_sample_bwd_banded"] += 1

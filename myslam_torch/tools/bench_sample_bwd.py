@@ -18,12 +18,24 @@ timing, then the card's name and power limit.
 ``BWD_RUN``).  The script uses only functions that every version of the
 port has, so the same file times another checkout's K2: run it from that
 checkout's root with ``PYTHONPATH=.`` (PERF.md's old/new comparison).
+
+``--banded 1,2`` times banded K2 instead (the map shards' backward) at
+the mapping SDF sample on the loop's ray-ordered points (160,000, bf16
+quad), on every band of the SDF atlas split in each number of bands
+(one band owns every point), with and without the quad gradient, by
+CUDA events and in a CUDA graph, beside the unbanded K2 on the same
+points; each record also counts the band's owned (point, level) pairs
+and the points with an owned level, and the vector reductions of the
+quad gradient that this checkout's walk issues (``row_updates``; for the
+unbanded K2 its merged runs).  It prints ptxas's registers, shared
+memory and spills of the backward kernels first.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 
 import torch
@@ -103,6 +115,32 @@ def row_updates(layout, p_nor: torch.Tensor, run: int) -> dict:
             "rows_touched": rows}
 
 
+def banded_row_updates(band, p_nor: torch.Tensor) -> int:
+    """The vector reductions banded K2 issues for these points: per warp
+    segment of a block's list (``cuda_sample.band_lists``, split as the
+    kernel splits it) and per plane, one where the owned row changes and
+    one at the segment's end."""
+    p = p_nor.detach().float().cpu()
+    points, _, lengths = cuda_sample.band_lists(band, p)
+    warps = cuda_sample.BWD_BANDED_WARPS
+    order, seg = [], []
+    for b, length in enumerate(lengths.tolist()):
+        for w in range(warps):
+            lo, hi = w * length // warps, (w + 1) * length // warps
+            order.append(points[b, lo:hi])
+            seg.append(torch.full((hi - lo,), b * warps + w))
+    order, seg = torch.cat(order), torch.cat(seg)
+    total = 0
+    for _, _, au, av, H, W, off, y_lo, bh in band.planes():
+        row, owned, *_ = cuda_sample.band_coords(p, au, av, H, W, off, y_lo,
+                                                 bh, band.total_rows)
+        keep = owned[order]
+        r, s = row[order][keep], seg[keep]
+        if r.numel():
+            total += 1 + int(((r[1:] != r[:-1]) | (s[1:] != s[:-1])).sum())
+    return total
+
+
 def uniform_points(n: int, gen: torch.Generator, device) -> torch.Tensor:
     """Uniform points, past [-1, 1] on purpose (the border clamp)."""
     return (torch.rand((n, 3), generator=gen, device=device) * 2.1
@@ -129,10 +167,135 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return err / max(float(ref.float().abs().max()), 1e-30)
 
 
+def ptxas_report(build_log: str, key: str) -> dict:
+    """{mangled kernel name: registers, shared memory bytes, spill
+    bytes} of the kernels whose name holds ``key``, from ptxas -v."""
+    out, fn = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or key not in fn:
+            continue
+        rec = out.setdefault(fn, {})
+        if "spill" in ln:
+            rec["spill_bytes"] = sum(
+                int(b) for b in re.findall(r"(\d+) bytes spill", ln))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rec["registers"] = int(m.group(1))
+            rec["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def band_quads(layout, atlas: torch.Tensor, n_bands: int, dtype):
+    """Each map shard's band layout and halo-packed band quad of the
+    atlas, as the map shards pack them (parallel/plane_shard.py)."""
+    from myslam_torch.parallel import plane_shard as tps
+
+    ts = tps.ShardedPlaneLayout(layout, n_bands)
+    rows = ts.local_rows
+    sharded = torch.as_tensor(ts.shard_atlas(atlas.cpu().numpy())).to(
+        atlas.device)
+    out = []
+    for d in range(n_bands):
+        last = d == n_bands - 1
+        nxt = sharded[(d if last else d + 1) * rows:][:rows]
+        quad = tps.pack_local(sharded[d * rows:(d + 1) * rows],
+                              tps.first_rows(nxt, ts), ts, last)
+        out.append((ts.band(d), quad.to(dtype).contiguous()))
+    return ts, out
+
+
+def band_ownership(band, p_nor: torch.Tensor) -> dict:
+    """These points on one band: the distinct band rows the owned points
+    touch, the owned (point, plane) pairs, the (point, level) pairs with
+    an owned plane (the gbar banded K2 needs) and the points with one
+    (those it walks).  By ``cuda_sample.band_coords``, which every
+    checkout with bands has."""
+    p = p_nor.detach().float().cpu()
+    touched = pairs = 0
+    levels = torch.zeros((band.n_levels, p.shape[0]), dtype=torch.bool)
+    for lvl, _, au, av, H, W, off, y_lo, bh in band.planes():
+        row, owned, *_ = cuda_sample.band_coords(p, au, av, H, W, off, y_lo,
+                                                 bh, band.total_rows)
+        touched += int(torch.unique(row[owned]).numel())
+        pairs += int(owned.sum())
+        levels[lvl] |= owned
+    return {"rows_touched": touched, "owned_point_planes": pairs,
+            "owned_point_levels": int(levels.sum()),
+            "listed_points": int(levels.any(0).sum())}
+
+
+def bench_banded(cfg: dict, band_counts: list, dev, gen,
+                 label: str) -> list[dict]:
+    """Banded K2 on every band of each count, and the unbanded K2, at the
+    mapping SDF sample on the loop's points (one JSON line each)."""
+    from myslam_torch.tools.bench_sample_fwd import graph_ms
+
+    layout = layouts(cfg)["sdf"]
+    C = layout.c_dim
+    atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,
+                               device=dev)
+    p_nor = loop_points(cfg, 4000, dev, SEED, 0)
+    n = p_nor.shape[0]
+    gbar = torch.randn((n, layout.n_levels * 4 * C), generator=gen,
+                       device=dev)
+    runs = [(None, None, layout, pack_quad(atlas, layout).to(
+        torch.bfloat16).contiguous())]
+    for nb in band_counts:
+        runs += [(nb, d, band, quad) for d, (band, quad) in
+                 enumerate(band_quads(layout, atlas, nb, torch.bfloat16)[1])]
+    recs = []
+    for nb, d, lay, quad in runs:
+        if nb is None:
+            fn, ref = cuda_sample.plane_sample_bwd, \
+                cuda_sample.plane_sample_bwd_ref
+            own = {"owned_point_levels": n * layout.n_levels,
+                   "listed_points": n}
+            flushes = row_updates(layout, p_nor, cuda_sample.BWD_RUN)[
+                "merged"]
+        else:
+            fn, ref = cuda_sample.plane_sample_bwd_banded, \
+                cuda_sample.plane_sample_bwd_banded_ref
+            own = band_ownership(lay, p_nor)
+            # This checkout's banded walk (older ones have no lists).
+            flushes = (banded_row_updates(lay, p_nor)
+                       if hasattr(cuda_sample, "band_lists") else None)
+        ref_qg, ref_pg = ref(gbar, quad, lay, p_nor)
+        for with_qg in (True, False):
+            qg_out, pg_out = fn(gbar, quad, lay, p_nor,
+                                need_quad_grad=with_qg)
+            torch.cuda.synchronize()
+            err = rel_err(pg_out, ref_pg)
+            if with_qg:
+                err = max(err, rel_err(qg_out, ref_qg))
+
+            def call():
+                fn(gbar, quad, lay, p_nor, need_quad_grad=with_qg)
+
+            rec = {"label": label, "case": "map_sdf", "points": n,
+                   "bands": nb, "band": d,
+                   "owned_point_levels": own["owned_point_levels"],
+                   "listed_points": own["listed_points"],
+                   "row_updates": flushes,
+                   "quad_grad": with_qg,
+                   "ms": time_ms(call), "ms_graph": graph_ms(call),
+                   "rel_err": err}
+            recs.append(rec)
+            print(json.dumps(rec), flush=True)
+    return recs
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", default="",
                     help="comma-separated points per warp to sweep")
+    ap.add_argument("--banded", default="",
+                    help="comma-separated band counts: time banded K2 "
+                         "on each band instead")
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -145,8 +308,17 @@ def main(argv=None) -> list[dict]:
         raise SystemExit("this checkout's K2 has no run length to sweep")
     default_run = getattr(cuda_sample, "BWD_RUN", None)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    band_counts = [int(b) for b in args.banded.split(",") if b]
     recs = []
-    for name, lay, n_rays, keep, dtype, qg in CASES:
+    if band_counts:
+        cuda_sample.load()
+        print(json.dumps({
+            "label": args.label, "build_s": cuda_sample.BUILD_SECONDS,
+            "ptxas": ptxas_report(cuda_sample.BUILD_LOG, "plane_sample_bwd")}),
+            flush=True)
+        recs = bench_banded(cfg, band_counts, dev, gen, args.label)
+    for name, lay, n_rays, keep, dtype, qg in ([] if band_counts
+                                               else CASES):
         layout = lays[lay]
         C = layout.c_dim
         atlas = 0.01 * torch.randn((layout.total_rows, C), generator=gen,

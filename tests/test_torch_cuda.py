@@ -26,9 +26,12 @@ depth rasterizer and the mesh culling's visibility run on the card and
 the CPU with the same rounding (elementwise operations, a stable sort, a
 minimum): held bit for bit.  The banded K1 / K2 (a map shard's band
 atlas, ``parallel/plane_shard.py``) on 2 and 3 shards and both quad
-types against their plain banded versions at 1e-5 of the largest value,
-their parts summed over the shards against the unbanded plain version,
-and ``SampleBanded``'s gradients on the card against the CPU's.
+types against their plain banded versions at 1e-5 of the largest value
+(also where a band owns no point or every point, where ownership
+alternates point by point, at 1 and chunk +- 1 points, at 1, 3 and 4
+levels and at c_dim 64), their parts summed over the shards against the
+unbanded plain version, and ``SampleBanded``'s gradients on the card
+against the CPU's.
 """
 
 import ctypes
@@ -41,7 +44,8 @@ import torch
 from myslam_torch.models.planes import make_layout
 from myslam_torch.ops import cuda_sample, smem_sample
 from myslam_torch.ops.plane_sample import pack_quad, sample_fused
-from myslam_torch.tools.bench_sample_bwd import layouts, loop_points
+from myslam_torch.tools.bench_sample_bwd import band_quads, layouts, \
+    loop_points
 from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
 
 BOUND = np.array([[-1.9, 7.94], [-2.2, 4.52], [-2.5, 2.54]], np.float32)
@@ -161,34 +165,53 @@ def test_smem_kernel_matches_plain_version_and_k1(dev, bound, res, c_dim,
     torch.testing.assert_close(built(quad.float(), p), out, atol=0, rtol=0)
 
 
-def _bands(layout, atlas, n, dev, dtype):
-    """Each shard's band layout and halo-packed band quad, from the
-    unsharded atlas."""
-    from myslam_torch.parallel import plane_shard as tps
+def _banded_points(kind: str, n_pts: int, rng) -> np.ndarray:
+    """Points whose ownership on 2 bands is: mixed ("uniform"); all on
+    band 0, band 1 owning no point ("one_side"); alternating point by
+    point ("alternating": even points on band 0, odd on band 1).  A
+    plane's band split runs along its v axis (y for xy, z for xz and
+    yz), so the sides are y and z both below or both above the middle."""
+    p = rng.uniform(-1.05, 1.05, size=(n_pts, 3)).astype(np.float32)
+    if kind != "uniform":
+        side = np.where(np.arange(n_pts) % 2 == 1, 1.0, -1.0) \
+            if kind == "alternating" else -np.ones(n_pts)
+        p[:, 1:] = (side[:, None] * rng.uniform(0.2, 1.0, size=(n_pts, 2))
+                    ).astype(np.float32)
+    return p
 
-    ts = tps.ShardedPlaneLayout(layout, n)
-    rows = ts.local_rows
-    sharded = torch.tensor(ts.shard_atlas(atlas), device=dev)
-    out = []
-    for d in range(n):
-        last = d == n - 1
-        nxt = sharded[(d if last else d + 1) * rows:][:rows]
-        quad = tps.pack_local(sharded[d * rows:(d + 1) * rows],
-                              tps.first_rows(nxt, ts), ts, last)
-        out.append((ts.band(d), quad.to(dtype).contiguous()))
-    return ts, out
+
+CHUNK = cuda_sample.BWD_BANDED_CHUNK
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [2, 3])
-def test_banded_kernels_match_plain_versions(dev, dtype, n):
-    layout, atlas, p_nor, gbar = _inputs(10)
-    p = torch.tensor(p_nor, device=dev)
-    g = torch.tensor(gbar, device=dev)
-    ts, bands = _bands(layout, atlas, n, dev, dtype)
+@pytest.mark.parametrize("n,kind,n_pts,res,c_dim", [
+    (2, "uniform", N_PTS, [0.48, 0.24], C_DIM),
+    (3, "uniform", N_PTS, [0.48, 0.24], C_DIM),
+    (2, "one_side", N_PTS, [0.48, 0.24], C_DIM),
+    (2, "alternating", N_PTS, [0.48, 0.24], C_DIM),
+    (2, "uniform", 1, [0.48, 0.24], C_DIM),
+    (2, "uniform", CHUNK - 1, [0.48, 0.24], C_DIM),
+    (2, "uniform", CHUNK + 1, [0.48, 0.24], C_DIM),
+    (2, "uniform", N_PTS, [0.24], C_DIM),
+    (2, "uniform", N_PTS, [0.96, 0.48, 0.24], C_DIM),
+    (3, "uniform", N_PTS, [0.96, 0.48, 0.24, 0.12], C_DIM),
+    (2, "alternating", N_PTS, [0.48, 0.24], 64),
+])
+def test_banded_kernels_match_plain_versions(dev, dtype, n, kind, n_pts,
+                                             res, c_dim):
+    """Banded K1 / K2 on every band against their plain versions, with
+    and without the quad gradient, and summed over the bands against the
+    unbanded plain version; a band that owns no point gets zeros."""
+    layout = make_layout(BOUND, res, c_dim)
+    rng = np.random.default_rng(10)
+    atlas = rng.normal(size=(layout.total_rows, c_dim)).astype(np.float32)
+    p = torch.tensor(_banded_points(kind, n_pts, rng), device=dev)
+    g = torch.tensor(rng.normal(size=(n_pts, layout.n_levels * 4 * c_dim)),
+                     dtype=torch.float32, device=dev)
+    ts, bands = band_quads(layout, torch.tensor(atlas, device=dev), n, dtype)
     fwd_sum, pg_sum, qgs = 0, 0, []
-    for band, quad in bands:
+    for d, (band, quad) in enumerate(bands):
         before = dict(cuda_sample.LAUNCHES)
         out = cuda_sample.plane_sample_fwd_banded(quad, band, p)
         qg, pg = cuda_sample.plane_sample_bwd_banded(g, quad, band, p)
@@ -206,6 +229,14 @@ def test_banded_kernels_match_plain_versions(dev, dtype, n):
         _assert_within(qg, rqg, "banded quad_grad")
         _assert_within(pg, rpg, "banded p_grad")
         _assert_within(pg_only, rpg, "banded p_grad without quad_grad")
+        listed = int(cuda_sample.band_lists(band, p)[2].sum())
+        if kind == "one_side":
+            assert listed == (n_pts if d == 0 else 0)
+        if kind == "one_side" and d == 1:  # owns no point
+            assert not out.any() and not qg.any() and not pg.any()
+            assert not pg_only.any()
+        elif kind == "alternating":
+            assert listed == (n_pts + 1 - d) // 2
         fwd_sum, pg_sum = fwd_sum + out, pg_sum + pg
         qgs.append(qg.cpu().numpy())
     quad = pack_quad(torch.tensor(atlas, device=dev), layout).to(dtype)
@@ -242,7 +273,8 @@ def test_sample_banded_autograd_on_the_card_matches_the_cpu(dev):
 @pytest.mark.cuda
 def test_banded_entries_refuse_a_missing_band_table(dev):
     layout, atlas, p_nor, _ = _inputs(12)
-    _, bands = _bands(layout, atlas, 2, dev, torch.float32)
+    _, bands = band_quads(layout, torch.tensor(atlas, device=dev), 2,
+                          torch.float32)
     band, quad = bands[0]
     p = torch.tensor(p_nor, device=dev)
     out = torch.empty((N_PTS, 2 * 4 * C_DIM), device=dev)
