@@ -44,6 +44,11 @@ poses stay replicated.  The update is elementwise, so it equals the
 replicated one.  The optimizer is built fresh for each mapped frame, so
 no sharded moment outlives the frame or reaches a checkpoint.  One rank
 is exactly the unsharded path.
+
+Spans (``utils/trace.py``): ``map.select`` (the scratch write and the
+window's pick), per iteration ``map.iter`` holding ``map.loss``,
+``map.backward`` and ``map.step``, and ``map.writeback`` (the window's
+poses back to the store).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from myslam_torch.ops.pixel_gather import gather_rgb, gather_scalar, \
 from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import SceneGeometry, make_queries, \
     render_core
+from myslam_torch.utils import trace
 
 
 # Atlases of at least this many rows have their Adam moments row-sharded
@@ -304,17 +310,21 @@ def _iterate(loss_fn, make_optimizer, ms: MapState, poses, pose_mask,
                 cur = torch.as_tensor(n_slots, device=poses.device)
                 pose = poses.detach().index_select(0, cur.reshape(1) - 1)
                 vis_hook(it, ms, cam_pose_to_matrix(pose)[0])
-        (zero or opt).zero_grad()
-        loss = loss_fn(ms, poses, pose_mask, lines, n_slots, *imagery,
-                       draws)
-        loss.backward()
-        if zero is not None:
-            zero.step()
-        else:
-            if sharded:
-                distributed.all_reduce_grads(params)
-            opt.step()
-        losses.append(loss.detach())
+        with trace.span("map.iter"):
+            (zero or opt).zero_grad()
+            with trace.span("map.loss"):
+                loss = loss_fn(ms, poses, pose_mask, lines, n_slots,
+                               *imagery, draws)
+            with trace.span("map.backward"):
+                loss.backward()
+            with trace.span("map.step"):
+                if zero is not None:
+                    zero.step()
+                else:
+                    if sharded:
+                        distributed.all_reduce_grads(params)
+                    opt.step()
+            losses.append(loss.detach())
     if zero is not None:
         own, full = zero.moment_bytes()
         ADAM_BYTES.update(atlas_moments=own, atlas_moments_replicated=full)
@@ -343,7 +353,7 @@ def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
     losses = _iterate(loss_fn, make_optimizer, ms, poses, pose_mask, lines,
                       n_slots, imagery, draws, iters, lr_factor, sharded,
                       vis_hook, vis_every, zero_opt, min_rows)
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("map.writeback"):
         # Keyframe poses of the optimized window slots; the trajectory
         # only for the current frame, under joint_opt.
         c2ws_out = cam_pose_to_matrix(poses)
@@ -416,7 +426,7 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
                   iters: int, lr_factor: float, joint_opt: bool,
                   admit: bool, vis_hook=None, vis_every: int = 1):
         count = store.count
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("map.select"):
             store.write_packet(scratch_slot, color_u8, depth_u16, inv_q)
             imagery = store.imagery()
             if packed:

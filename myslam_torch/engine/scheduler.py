@@ -13,14 +13,17 @@ those of tracking each frame as it arrives.
 This is the single-device, non-pipelined mode of
 ``myslam_tpu.engine.scheduler.SLAMSystem``, with its keyframe store
 modes (``keyframe_device``: the float, packed and host-staged stores),
-its loop timing (``frame_start_wall``, ``frame_times``, ``drain_wall``,
+its loop timing (``frame_start_wall``, ``drain_wall``,
 ``sync_after_frame``) and its bookkeeping: ``<output>/metrics.jsonl``,
 the periodic checkpoints and meshes (``mapping.ckpt_freq`` /
 ``mesh_freq``), the final ones, the heartbeat that ``run_torch.py
 --supervise`` watches and the fault hook, and ``resume``; and the
 in-loop panels (``tracking/mapping.vis_freq``, ``vis_inside_freq``,
 ``utils/visualizer.py``).  On a CUDA device the prefetch thread stages
-each packet's uploads (``datasets.stage_packet``).
+each packet's uploads (``datasets.stage_packet``).  The loop's host
+work is marked by ``utils/trace.py``'s spans (``frame``, ``sync``,
+``track.group``, ``map.frame``, ``post_map``), which keep nothing unless
+the tracer is on.
 
 The config's ``parallel`` section is read by the JAX package's rules
 (``parallel_plan``): one rank is one process and one device, and every
@@ -90,7 +93,7 @@ from myslam_torch.parallel import pipeline as pipe
 from myslam_torch.render.renderer import scene_from_cfg
 from myslam_torch.tools.cull_mesh import cull_mesh
 from myslam_torch.tools.eval_ate import evaluate_run
-from myslam_torch.utils import imageio
+from myslam_torch.utils import imageio, trace
 from myslam_torch.utils.datasets import PacketPrefetcher, Prefetcher, \
     build_packet, get_dataset, wait_staged
 from myslam_torch.utils.logger import latest_checkpoint, load_checkpoint, \
@@ -422,12 +425,11 @@ class SLAMSystem:
         self.frame_log: list[dict] = []
         # Optional hook, called as f(self, idx) after each mapped frame.
         self.on_map_done = None
-        # Loop timing (perf_counter seconds): each frame's start, each
-        # frame's host time, and the end of the drain after the loop.
-        # Work is queued asynchronously, so throughput is measured from a
-        # frame's start to the drain, not from the per-frame times.
+        # Loop timing (perf_counter seconds): each frame's start and the
+        # end of the drain after the loop.  Work is queued
+        # asynchronously, so throughput is measured from a frame's start
+        # to the drain, not from the frames' host times (``frame_ms``).
         self.frame_start_wall: list[float] = []
-        self.frame_times: list[float] = []
         self.drain_wall = 0.0
         # Benchmarking: drain the device after this frame, so a window
         # starting at the next frame holds no backlog of frame 0's work.
@@ -454,15 +456,17 @@ class SLAMSystem:
         return t if dtype is None else t.to(dtype)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with trace.span("sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
-    def _timed(self, fn):
-        """Run fn(); returns (result, host ms to return, ms to the device
-        finishing its work)."""
+    def _timed(self, fn, name: str, frame: int):
+        """Run fn() in the span ``name`` of ``frame``; returns (result,
+        host ms to return, ms to the device finishing its work)."""
         self._sync()
         t0 = time.perf_counter()
-        out = fn()
+        with trace.span(name, frame):
+            out = fn()
         t_host = time.perf_counter()
         self._sync()
         t_dev = time.perf_counter()
@@ -553,7 +557,7 @@ class SLAMSystem:
                     stack("px_depth"), draws)
 
         (_, loss_first, loss_best, iter_poses), host_ms, ms = self._timed(
-            run)
+            run, "track.group", idx0)
         for g, (idx, pkt, rec) in enumerate(buf):
             rec["track_host_ms"] = host_ms / len(buf)
             rec["track_ms"] = ms / len(buf)
@@ -601,7 +605,7 @@ class SLAMSystem:
                 iters=iters, lr_factor=lr_factor, joint_opt=joint_opt,
                 admit=admit, **vis)
 
-        losses, host_ms, ms = self._timed(run)
+        losses, host_ms, ms = self._timed(run, "map.frame", idx)
         if admit and not self.store.host_mode:
             self.store.note_admitted(pkt.has_depthless, idx)
         rec["map_host_ms"] = host_ms
@@ -641,7 +645,8 @@ class SLAMSystem:
         slot_kf, n_slots, pose_mask = self._selector(
             st.est_c2w, st.count, self.est[idx], cur_depth, self.draws,
             joint_opt)
-        host = torch.cat([slot_kf, n_slots[None]]).cpu().numpy()
+        with trace.span("sync"):
+            host = torch.cat([slot_kf, n_slots[None]]).cpu().numpy()
         self.selection_fetches += 1
         return (slot_kf, n_slots, pose_mask), (host[:-1], int(host[-1]))
 
@@ -653,13 +658,15 @@ class SLAMSystem:
         the line cache, the iterations over the cache slab, then the
         imagery admitted on the host and bound to a line."""
         st = self.store
-        scratch_line = st.stage_scratch(pkt.color_u8, pkt.depth_u16,
-                                        pkt.depth_inv_q)
-        (slot_kf, n_slots, pose_mask), (host_slots, n_host) = \
-            self._select_host(idx, joint_opt)
-        win_lines = np.full((self.w_max,), scratch_line, np.int64)
-        if n_host > 1:
-            win_lines[:n_host - 1] = st.stage_lines(host_slots[:n_host - 1])
+        with trace.span("map.select"):
+            scratch_line = st.stage_scratch(pkt.color_u8, pkt.depth_u16,
+                                            pkt.depth_inv_q)
+            (slot_kf, n_slots, pose_mask), (host_slots, n_host) = \
+                self._select_host(idx, joint_opt)
+            win_lines = np.full((self.w_max,), scratch_line, np.int64)
+            if n_host > 1:
+                win_lines[:n_host - 1] = st.stage_lines(
+                    host_slots[:n_host - 1])
         losses = mapper(
             self.map_state, st, self.est, slot_kf, n_slots, pose_mask,
             self._to_dev(win_lines), self._to_dev(pkt.gt_c2w), idx,
@@ -697,8 +704,9 @@ class SLAMSystem:
         keys = [(rec, k) for rec in pending for k, v in rec.items()
                 if isinstance(v, torch.Tensor)]
         if keys:
-            values = torch.stack([rec[k].detach().reshape(()).float()
-                                  for rec, k in keys]).cpu().tolist()
+            with trace.span("sync"):
+                values = torch.stack([rec[k].detach().reshape(()).float()
+                                      for rec, k in keys]).cpu().tolist()
             for (rec, k), v in zip(keys, values):
                 rec[k] = v
         lines += pending
@@ -813,47 +821,49 @@ class SLAMSystem:
         for idx, pkt in PacketPrefetcher(
                 self.dataset, range(start_idx, self.n_img),
                 self._make_packet, stage=stage):
-            t_frame = time.perf_counter()
-            self._beat(idx)
-            wait_staged(pkt)
-            self.frame_start_wall.append(t_frame)
-            self.gt_poses[idx] = pkt.gt_c2w
-            rec = {"frame": idx}
-            self.frame_log.append(rec)
-            deferred = False
-            if track_role:
-                if idx == 0 or self.gt_camera:
-                    if not np.isfinite(pkt.gt_c2w).all():
-                        raise ValueError(
-                            f"frame {idx}: the ground-truth pose the run "
-                            "starts from is not finite")
-                    track_est[idx] = self._to_dev(pkt.gt_c2w)
-                else:
-                    self._track_buf.append((idx, pkt, rec))
-                    deferred = True
-            mapped = idx in bound_set
-            if mapped:
+            with trace.span("frame", idx):
+                t_frame = time.perf_counter()
+                self._beat(idx)
+                wait_staged(pkt)
+                self.frame_start_wall.append(t_frame)
+                self.gt_poses[idx] = pkt.gt_c2w
+                rec = {"frame": idx}
+                self.frame_log.append(rec)
+                deferred = False
                 if track_role:
-                    # The group's poses must be in the trajectory before
-                    # the mapping window is assembled.
-                    self._flush_track_buf(open_rec=rec)
-                    deferred = False
-                self._map_boundary(idx, pkt, rec, prev, idx == bounds[-1])
-                prev = idx
-            if idx == self.sync_after_frame:
-                if track_role:
-                    self._flush_track_buf(open_rec=rec)
-                    deferred = False
-                self._sync()
-            self.frame_times.append(time.perf_counter() - t_frame)
-            rec["frame_ms"] = self.frame_times[-1] * 1e3
-            # Under the pipeline the map role's ranks log only the mapped
-            # frames.
-            if not deferred and (track_role or mapped):
-                self._log_metrics(rec)
-            if mapped and map_role:
-                with self._role_scope(track=False):
-                    self._post_map(idx)
+                    if idx == 0 or self.gt_camera:
+                        if not np.isfinite(pkt.gt_c2w).all():
+                            raise ValueError(
+                                f"frame {idx}: the ground-truth pose the "
+                                "run starts from is not finite")
+                        track_est[idx] = self._to_dev(pkt.gt_c2w)
+                    else:
+                        self._track_buf.append((idx, pkt, rec))
+                        deferred = True
+                mapped = idx in bound_set
+                if mapped:
+                    if track_role:
+                        # The group's poses must be in the trajectory
+                        # before the mapping window is assembled.
+                        self._flush_track_buf(open_rec=rec)
+                        deferred = False
+                    self._map_boundary(idx, pkt, rec, prev,
+                                       idx == bounds[-1])
+                    prev = idx
+                if idx == self.sync_after_frame:
+                    if track_role:
+                        self._flush_track_buf(open_rec=rec)
+                        deferred = False
+                    self._sync()
+                rec["frame_ms"] = (time.perf_counter() - t_frame) * 1e3
+                # Under the pipeline the map role's ranks log only the
+                # mapped frames.
+                if not deferred and (track_role or mapped):
+                    self._log_metrics(rec)
+                if mapped and map_role:
+                    with trace.span("post_map"), \
+                            self._role_scope(track=False):
+                        self._post_map(idx)
         self._flush_track_buf()
         if link is not None:
             link.close()
@@ -991,11 +1001,6 @@ class SLAMSystem:
                 self.final_mesh, src=self.pipe.map_lead)
         self._flush_metrics()
         return ckpt
-
-    @property
-    def fps(self) -> float:
-        total = sum(self.frame_times)
-        return len(self.frame_times) / total if total > 0 else 0.0
 
     @staticmethod
     def _build_seconds() -> float:

@@ -9,7 +9,9 @@ Reference semantics, as in ``myslam_tpu.engine.tracker``:
     rays whose depth error exceeds 10x the median are masked out;
   * fresh pixels every iteration (drawn on the host, ``build_packet``).
 
-The loop is eager Python; nothing in it waits for the device.
+The loop is eager Python; nothing in it waits for the device.  Its
+spans (``utils/trace.py``): ``track.pack`` per group, and per iteration
+``track.iter`` holding ``track.loss``, ``track.grad`` and ``track.step``.
 
 ``sharded``: the pixel batch of each iteration splits over the ranks of
 the process group (``parallel/distributed.py``), as the JAX package's
@@ -37,6 +39,7 @@ from myslam_torch.models.planes import MapState
 from myslam_torch.ops.plane_sample import pack_quad
 from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import SceneGeometry, render_rays
+from myslam_torch.utils import trace
 
 
 def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
@@ -114,20 +117,25 @@ def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
         best_pose = pose_init.detach()
         losses, poses = [], []
         for it in range(iters):
-            loss = loss_fn(R, T, ms, quads, px_i[it], px_j[it], px_color[it],
-                           px_depth[it], draws)
-            R.grad, T.grad = torch.autograd.grad(loss, [R, T])
-            if sharded:
-                g = distributed.all_reduce_(torch.cat([R.grad, T.grad]),
-                                            "track_grad")
-                R.grad, T.grad = g[:4], g[4:]
-            pose = torch.cat([R, T]).detach()
-            loss = loss.detach()
-            best_pose = torch.where(loss < best_loss, pose, best_pose)
-            best_loss = torch.minimum(loss, best_loss)
-            losses.append(loss)
-            poses.append(pose)
-            opt.step()
+            with trace.span("track.iter"):
+                with trace.span("track.loss"):
+                    loss = loss_fn(R, T, ms, quads, px_i[it], px_j[it],
+                                   px_color[it], px_depth[it], draws)
+                with trace.span("track.grad"):
+                    R.grad, T.grad = torch.autograd.grad(loss, [R, T])
+                    if sharded:
+                        g = distributed.all_reduce_(
+                            torch.cat([R.grad, T.grad]), "track_grad")
+                        R.grad, T.grad = g[:4], g[4:]
+                with trace.span("track.step"):
+                    pose = torch.cat([R, T]).detach()
+                    loss = loss.detach()
+                    best_pose = torch.where(loss < best_loss, pose,
+                                            best_pose)
+                    best_loss = torch.minimum(loss, best_loss)
+                    losses.append(loss)
+                    poses.append(pose)
+                    opt.step()
         return best_pose, torch.stack(losses), torch.stack(poses)
 
     return core
@@ -205,7 +213,8 @@ def make_group_tracker(cfg: dict, scene: SceneGeometry, cam: Camera,
     core = make_track_core(cfg, scene, cam, sharded)
 
     def track_group(ms, est, idx0, px_i, px_j, px_color, px_depth, draws):
-        quads = pack_tracking_quads(ms, scene, map_bf16)
+        with trace.span("track.pack"):
+            quads = pack_tracking_quads(ms, scene, map_bf16)
         prev = matrix_to_cam_pose(est[idx0 - 1])
         prev_prev = (matrix_to_cam_pose(est[idx0 - 2]) if idx0 >= 2
                      else prev)

@@ -29,7 +29,7 @@ import threading
 import numpy as np
 import torch
 
-from myslam_torch.utils import imageio
+from myslam_torch.utils import imageio, trace
 
 
 def get_dataset(cfg: dict, input_folder: str | None = None):
@@ -587,7 +587,8 @@ class PacketPrefetcher:
     (decoding and numpy rendering release the interpreter lock).  With
     ``stage`` (a CUDA device) it also starts each packet's uploads
     through a ring of pinned buffers (``stage_packet``); the consumer
-    calls ``wait_staged`` before it uses a packet."""
+    calls ``wait_staged`` before it uses a packet.  The consumer's wait
+    for each item is a ``prefetch_wait`` span (``utils/trace.py``)."""
 
     def __init__(self, dataset, indices, make_packet, depth: int = 4,
                  stage=None):
@@ -614,7 +615,8 @@ class PacketPrefetcher:
 
     def __iter__(self):
         while True:
-            item = self.q.get()
+            with trace.span("prefetch_wait"):
+                item = self.q.get()
             if item is None:
                 return
             if isinstance(item, Exception):

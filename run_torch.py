@@ -16,6 +16,13 @@ the ATE, the frame count, the frame the run started from
 (``resumed_from``, 0 when fresh), the output folder and the culled
 mesh's path.  A failure of the checkpoint or the mesh raises.
 
+``--spans PATH`` turns on the loop's tracer (``myslam_torch/utils/
+trace.py``) for the run and writes its spans to PATH at the end as a
+Chrome trace (one "X" event per span, one ``tid`` per thread, times in
+microseconds on ``time.perf_counter``'s clock), which a trace viewer
+opens beside a ``torch.profiler`` trace; rank r > 0 of a gang writes
+``PATH`` with ``.rank<r>`` before its extension.
+
 ``--supervise`` runs the job as a child process and restarts it from
 the newest checkpoint (``--resume``) when it dies, or, with
 ``--hang-timeout S``, when ``<output>/HEARTBEAT`` has not changed for S
@@ -66,6 +73,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in the output "
                         "folder (the full state, map included)")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="write the loop's spans to PATH as a Chrome trace")
     gang = p.add_argument_group("multi-process gang")
     gang.add_argument("--launch", type=int, default=1,
                       help="run as a gang of N ranks on this machine")
@@ -125,6 +134,7 @@ def run(args, device) -> dict | None:
     every other rank prints its own on a ``RANK r: launches`` line)."""
     from myslam_torch.engine.scheduler import SLAMSystem
     from myslam_torch.ops import cuda_sample
+    from myslam_torch.utils import trace
     from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
 
     cfg = load_config(args.config, DEFAULT_CONFIG)
@@ -135,8 +145,18 @@ def run(args, device) -> dict | None:
     if not slam.proc0:
         print(f"RANK {slam.rank}: resumed_from {start}", flush=True)
     cuda_sample.reset_launches()
-    slam.run(start)
+    if args.spans:
+        trace.enable()
+    try:
+        slam.run(start)
+    finally:
+        trace.disable()
     t_end = time.perf_counter()
+    if args.spans:
+        root, ext = os.path.splitext(args.spans)
+        trace.write_chrome_trace(
+            trace.take(), args.spans if slam.proc0
+            else f"{root}.rank{slam.rank}{ext}")
     launches = dict(cuda_sample.LAUNCHES)
     if not slam.proc0:
         print(f"RANK {slam.rank}: launches {json.dumps(launches)}",
@@ -171,7 +191,8 @@ def launch_local(args) -> int:
             "--coordinator", f"127.0.0.1:{free_port()}"]
     for flag, value in (("--input_folder", args.input_folder),
                         ("--output", args.output),
-                        ("--device", args.device)):
+                        ("--device", args.device),
+                        ("--spans", args.spans)):
         if value:
             base += [flag, value]
     if args.resume:
@@ -217,7 +238,8 @@ def supervise(args) -> int:
             "--seed", str(args.seed)]
     for flag, value in (("--input_folder", args.input_folder),
                         ("--output", args.output),
-                        ("--device", args.device)):
+                        ("--device", args.device),
+                        ("--spans", args.spans)):
         if value:
             base += [flag, value]
     if args.launch > 1:

@@ -1,7 +1,8 @@
 """The port's entry points and its package rules.
 
   * ``run_torch.py --device cpu`` completes a tiny synthetic run, reports
-    a finite ATE and writes the final mesh and its culled copy;
+    a finite ATE and writes the final mesh and its culled copy, and with
+    ``--spans`` the loop's spans as a Chrome trace;
   * ``SLAMSystem`` defaults to the GPU and refuses to run without one;
   * no module of ``myslam_torch/`` (``parallel/`` and the scaling tools
     included, and the tests' gang harness ``tests/torch_gang.py``), nor
@@ -15,6 +16,7 @@
 """
 
 import ast
+import json
 import math
 import os
 
@@ -129,14 +131,21 @@ def _tiny_config(tmp_path):
 def test_run_torch_on_cpu_reports_finite_ate(tmp_path, capsys):
     import run_torch
 
+    spans = tmp_path / "trace" / "spans.json"
     out = run_torch.main([_tiny_config(tmp_path), "--device", "cpu",
-                          "--seed", "1"])
+                          "--seed", "1", "--spans", str(spans)])
     assert out["device"] == "cpu" and out["frames"] == 6
     assert math.isfinite(out["ate_rmse_cm"])
     assert out["final_mesh"] == str(
         tmp_path / "out" / "mesh" / "final_mesh_culled.ply")
     assert os.path.exists(tmp_path / "out" / "mesh" / "final_mesh.ply")
     assert capsys.readouterr().out.strip().endswith("}")
+    events = json.loads(spans.read_text())["traceEvents"]
+    assert {e["ph"] for e in events} == {"X"}
+    frames = [e for e in events if e["name"] == "frame"]
+    assert sorted(e["args"]["frame"] for e in frames) == list(range(6))
+    assert len({e["tid"] for e in events}) == 1  # the loop's thread
+    assert all(e["dur"] >= 0 for e in events)
 
 
 def test_slam_system_defaults_to_the_gpu(monkeypatch):
