@@ -28,8 +28,9 @@ Phases, one JSON line each:
   3. slam         -- the SLAM loop: SLAMSystem on configs/Synthetic/room.yaml
                      at full width for 13 frames (frame 0 mapped for 1000
                      iterations, 12 tracked frames, frames 4, 8 and 12
-                     mapped), with per-frame times, K1/K2 launch counts
-                     and ATE;
+                     mapped), with per-frame times, K1/K2 launch counts,
+                     how tracking ran (one CUDA graph capture, then
+                     replays) and ATE;
   4. mesh         -- the same SLAMSystem's finalize(): the checkpoint,
                      the final mesh (SDF volume through K1, marching,
                      vertex colors through K1) and its culled copy, with
@@ -981,6 +982,26 @@ def check_launches(launches: dict, expected: dict) -> None:
                              "and no K3")
 
 
+def check_graph_counts(phase: str, counts: dict, iters: int, tracked: int,
+                       replayed: bool) -> None:
+    """Every tracking iteration ran once, replayed or eagerly
+    (``engine/tracker.GRAPH_COUNTS``): where tracking replays (a CUDA
+    device, tracking not sharded) one capture, whose frame ran its first
+    ``WARMUP_ITERS`` iterations eagerly, and replays for the rest; else
+    every iteration eager."""
+    from myslam_torch.engine.tracker import WARMUP_ITERS
+
+    total = iters * tracked
+    replayed = replayed and total > 0
+    warm = min(WARMUP_ITERS, iters) if replayed else total
+    want = {"captures": int(replayed), "replays": total - warm,
+            "eager_iters": warm}
+    if dict(counts) != want:
+        raise AssertionError(f"{phase}: tracking ran {counts}, expected "
+                             f"{want} for {tracked} frames of {iters} "
+                             "iterations")
+
+
 def run_slam(cfg, phase: str = "slam",
              config: str = "configs/Synthetic/room.yaml",
              setup=None) -> tuple:
@@ -988,12 +1009,13 @@ def run_slam(cfg, phase: str = "slam",
     and checked per group against its iterations (a periodic mesh's K1
     launches, one per volume chunk and per chunk of vertex colors, and a
     panel's, three per image chunk, apart); the trajectory and ATE (under
-    2 cm).  ``setup(slam)`` runs before the
-    loop.  Emits the frames' lines; returns the phase record (not
+    2 cm); how tracking ran (``check_graph_counts``).  ``setup(slam)``
+    runs before the loop.  Emits the frames' lines; returns the phase record (not
     emitted) and the system."""
     import numpy as np
     import torch
 
+    from myslam_torch.engine import tracker
     from myslam_torch.engine.scheduler import SLAMSystem
     from myslam_torch.ops import cuda_sample
 
@@ -1055,6 +1077,7 @@ def run_slam(cfg, phase: str = "slam",
     slam._extract_and_cull_mesh = counted_mesh
     torch.cuda.reset_peak_memory_stats()
     cuda_sample.reset_launches()
+    tracker.GRAPH_COUNTS.update(captures=0, replays=0, eager_iters=0)
     t0 = time.perf_counter()
     slam.run_loop()
     torch.cuda.synchronize()
@@ -1087,6 +1110,9 @@ def run_slam(cfg, phase: str = "slam",
     expected = expected_launches(slam)
     other = launch_sum(meshes + panels)
     check_launches({n: launches[n] - other[n] for n in launches}, expected)
+    graph_counts = dict(tracker.GRAPH_COUNTS)
+    check_graph_counts(phase, graph_counts, t_iters, len(tracked),
+                       slam.device.type == "cuda" and not slam.track_sharded)
     losses = [v for r in slam.frame_log for k, v in r.items()
               if "loss" in k]
     if not all(math.isfinite(v) for v in losses):
@@ -1115,6 +1141,7 @@ def run_slam(cfg, phase: str = "slam",
         "map_ms_frame0": mapped[0]["map_ms"],
         "frame0_s": mapped[0]["map_ms"] / 1e3,
         "wall_s": wall, "ate_rmse_cm": ate_cm, "launches": launches,
+        "graph_counts": graph_counts,
         "expected_launches": expected, "mesh_launches": meshes,
         "panel_launches": launch_sum(panels), "panels": len(panels),
         "calls": sample_calls(slam),
@@ -2150,7 +2177,8 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
     (``multiproc.launch``, ``run_system``: each rank counts its kernel
     launches from zero around the loop).  Every rank must finish, hold
     rank 0's trajectory bit for bit, stay under ``ate_gate_cm`` ATE,
-    launch the kernels as its iterations say (``expected``), and with
+    launch the kernels as its iterations say (``expected``), track as
+    ``check_graph_counts`` says, and with
     ``grads`` make one gradient all-reduce per mapping iteration.  Emits
     one line per rank; returns the ranks' records."""
     import numpy as np
@@ -2183,6 +2211,10 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
             raise AssertionError(f"{phase}: rank {r} launches "
                                  f"{rec['launches']} (pose system "
                                  f"{rec['schur_launches']}), loop {want}")
+        check_graph_counts(f"{phase} rank {r}", rec["graph_counts"],
+                           rec["track_iters"], rec["tracked_frames"],
+                           rec["device"].startswith("cuda")
+                           and not rec["track_sharded"])
         if grads and rec["grad_allreduces"] != rec["map_iters"]:
             raise AssertionError(
                 f"{phase}: rank {r} gradient all-reduces per mapped frame "
@@ -2205,6 +2237,9 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
                                      if len(rec["map_ms"]) > 1 else None),
               "launches": rec["launches"],
               "schur_launches": rec["schur_launches"],
+              "tracked_frames": rec["tracked_frames"],
+              "track_sharded": rec["track_sharded"],
+              "graph_counts": rec["graph_counts"],
               "grad_allreduces_per_mapped_frame": rec["grad_allreduces"],
               "ba_moves_m": rec["ba_moves_m"],
               "grad_allreduce_bytes": grad["bytes"] // calls,

@@ -77,7 +77,9 @@ def matrix_to_cam_pose(c2w: torch.Tensor) -> torch.Tensor:
 def cam_pose_to_matrix(pose: torch.Tensor) -> torch.Tensor:
     """(..., 7) [quat, t] -> (..., 4, 4)."""
     rot = quaternion_to_matrix(pose[..., :4])
-    bottom = pose.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
-        pose.shape[:-1] + (1, 4))
+    # The [0, 0, 0, 1] row filled on the pose's device, with no copy from
+    # the host (the tracker captures this into a CUDA graph).
+    bottom = pose.new_zeros(pose.shape[:-1] + (1, 4))
+    bottom[..., 3] = 1.0
     top = torch.cat([rot, pose[..., 4:, None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)

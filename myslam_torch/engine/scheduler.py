@@ -352,10 +352,10 @@ class SLAMSystem:
         # the tracker its ray sharding: every rank draws the same pixels
         # from the same stream and makes the same pose, with no
         # collective.
+        self.track_sharded = self.parallel == "dp" or (
+            self.parallel == "pipeline" and self.plan["track"] > 1)
         self.group_tracker = make_group_tracker(
-            cfg, self.scene, self.cam,
-            sharded=self.parallel == "dp" or (
-                self.parallel == "pipeline" and self.plan["track"] > 1))
+            cfg, self.scene, self.cam, sharded=self.track_sharded)
         self._selector = make_window_selector(
             self.cam, self.store.capacity, self.window_size, self.w_max,
             self.scratch_slot,

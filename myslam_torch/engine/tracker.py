@@ -9,9 +9,44 @@ Reference semantics, as in ``myslam_tpu.engine.tracker``:
     rays whose depth error exceeds 10x the median are masked out;
   * fresh pixels every iteration (drawn on the host, ``build_packet``).
 
-The loop is eager Python; nothing in it waits for the device.  Its
-spans (``utils/trace.py``): ``track.pack`` per group, and per iteration
-``track.iter`` holding ``track.loss``, ``track.grad`` and ``track.step``.
+One iteration body runs that math (``StaticFrame.body``): the loss, the
+pose gradient, ``torch.optim.Adam``'s step and the best-pose
+bookkeeping, over fixed buffers (the frame's pixels and depth-guided
+jitter as (iters, n[, S]) rows picked by a device index, the pose
+leaves, Adam's state, the results).  Per frame the host copies in the
+pixels and the start pose, draws the frame's jitter from the caller's
+source in iteration order, zeroes Adam's state in place (a fresh Adam),
+runs the body ``iters`` times and returns copies of the results.  How
+the body runs is chosen by what the call can observe (``replayable``),
+never by a setting:
+
+  * replayed, on a CUDA device when not ``sharded`` and while the
+    sample's entry points ``cuda_sample.plane_sample_fwd`` and
+    ``plane_sample_bwd`` are the module's own: the body is captured once
+    as a CUDA graph and replayed ``iters`` times a frame; the capturing
+    frame runs its first ``WARMUP_ITERS`` iterations eagerly to set up
+    what a capture cannot.  The graph is captured again when the pixel
+    count, ``iters``, the quads' dtype or shape, or the storage of a
+    decoder parameter changes; mapping updates the decoders in place,
+    so a run captures once;
+  * eager otherwise: Python launches every operation of every
+    iteration.  That covers CPU tensors, the ``sharded`` trackers (their
+    iterations run collectives), and a replaced sample entry point: a
+    graph replays only the kernels its capture saw, so a wrapper of K1's
+    and K2's entry points (a recorder of their calls, say) would see the
+    capture's calls and none of the replays.
+
+``GRAPH_COUNTS`` counts captures, replayed iterations and iterations run
+eagerly (a capturing frame's first ones among them).  A replay adds the
+K1/K2 launches its capture recorded to ``cuda_sample.LAUNCHES``, and a
+capture takes its own back (a captured kernel does not run then), so the
+counter still counts every run of the kernels on the device.
+
+Spans (``utils/trace.py``): ``track.pack`` per group; per iteration
+``track.iter``, holding ``track.loss``, ``track.grad`` and
+``track.step`` when the body runs eagerly and one replay's launch when
+it is replayed; ``track.capture`` around a capture and the eager
+iterations before it.
 
 ``sharded``: the pixel batch of each iteration splits over the ranks of
 the process group (``parallel/distributed.py``), as the JAX package's
@@ -26,6 +61,8 @@ up to float reduction order, the same on every rank.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from myslam_torch.core.geometry import ray_aabb_exit_t, rays_from_uv
@@ -36,10 +73,239 @@ from myslam_torch.core.quaternion import cam_pose_to_matrix, \
 from myslam_torch.core.sampling import RowShardDraws, rank_rows
 from myslam_torch.engine.camera import Camera
 from myslam_torch.models.planes import MapState
+from myslam_torch.ops import cuda_sample
 from myslam_torch.ops.plane_sample import pack_quad
 from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import SceneGeometry, render_rays
 from myslam_torch.utils import trace
+
+ADAM_BETAS = (0.5, 0.999)
+# A capturing frame's first iterations, run eagerly on a side stream
+# before the capture (``StaticFrame.capture``).
+WARMUP_ITERS = 2
+
+# How often tracking took each path (see the module's docstring).
+GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_iters": 0}
+
+# The sample's entry points as the module defines them.
+_SAMPLE_FWD = cuda_sample.plane_sample_fwd
+_SAMPLE_BWD = cuda_sample.plane_sample_bwd
+
+
+def replayable(pose_init: torch.Tensor, sharded: bool) -> bool:
+    """Whether a frame's iterations replay one captured graph: on a CUDA
+    device, without collectives (not ``sharded``), and with the sample's
+    entry points not replaced."""
+    return (pose_init.device.type == "cuda" and not sharded
+            and cuda_sample.plane_sample_fwd is _SAMPLE_FWD
+            and cuda_sample.plane_sample_bwd is _SAMPLE_BWD)
+
+
+class _SlotDraws:
+    """The iteration body's draw source: one ``uniform`` of the jitter
+    slots' shape, served from row ``it`` (a device index) of the frame's
+    jitter.  Any other draw raises."""
+
+    __slots__ = ("jitter", "it", "used")
+
+    def __init__(self, jitter, it):
+        self.jitter, self.it, self.used = jitter, it, False
+
+    def uniform(self, shape) -> torch.Tensor:
+        want = None if self.jitter is None else tuple(self.jitter.shape[1:])
+        if self.used or tuple(shape) != want:
+            raise ValueError(f"the tracking iteration drew {tuple(shape)}; "
+                             f"its slots hold one draw of {want}")
+        self.used = True
+        return self.jitter.index_select(0, self.it)[0]
+
+    def randint(self, shape, low: int, high: int) -> torch.Tensor:
+        raise ValueError("the tracking iteration draws no integers")
+
+
+class StaticFrame:
+    """One frame's optimization over fixed buffers: what the iteration
+    body reads and writes, and so what a captured graph of it replays.
+
+    ``body`` runs iteration ``it`` (a device int64 index) from the
+    buffers alone: the pixels and the jitter are row ``it`` of the
+    frame's (``index_select``), the pose is the leaves ``R`` and ``T``
+    under ``opt`` (``torch.optim.Adam``, its state on the device and
+    capturable on a CUDA device).  It writes the iteration's loss and
+    pre-update pose, the best loss and pose, the Adam step and ``it + 1``
+    in place.  ``load`` puts a frame in."""
+
+    def __init__(self, loss_fn, iters: int, lr_R: float, lr_T: float,
+                 sharded: bool, px, quads, pose_init, jitter_shape):
+        dev = pose_init.device
+        self.loss_fn = loss_fn
+        self.iters = iters
+        self.sharded = sharded
+        self.px = [torch.empty_like(x) for x in px]
+        self.quads = tuple(torch.empty_like(q) for q in quads)
+        self.quad_src: tuple = ()
+        self.jitter = (None if jitter_shape is None else torch.empty(
+            (iters,) + tuple(jitter_shape), device=dev))
+        self.R = torch.zeros(4, device=dev, requires_grad=True)
+        self.T = torch.zeros(3, device=dev, requires_grad=True)
+        self.opt = torch.optim.Adam(
+            [{"params": [self.R], "lr": lr_R},
+             {"params": [self.T], "lr": lr_T}],
+            betas=ADAM_BETAS, capturable=dev.type == "cuda")
+        # Its warm-up and eager iterations run outside a capture by design.
+        self.opt._warned_capturable_if_run_uncaptured = True
+        self.it = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.best_loss = torch.zeros((), device=dev)
+        self.best_pose = torch.zeros(7, device=dev)
+        self.losses = torch.zeros(iters, device=dev)
+        self.poses = torch.zeros((iters, 7), device=dev)
+        self.graph = None
+        self.launches: dict = {}
+
+    @torch.no_grad()
+    def load(self, quads, pose_init, px, draws) -> None:
+        """The frame's inputs in place: the quads when they are other
+        tensors than the last frame's (a new group's), the pixels, the
+        jitter (``iters`` draws from ``draws``, in iteration order), and
+        the start state (``reset``)."""
+        if len(self.quad_src) != len(quads) or any(
+                r() is not q for r, q in zip(self.quad_src, quads)):
+            for dst, q in zip(self.quads, quads):
+                dst.copy_(q)
+            self.quad_src = tuple(weakref.ref(q) for q in quads)
+        for dst, x in zip(self.px, px):
+            dst.copy_(x)
+        if self.jitter is not None:
+            shape = tuple(self.jitter.shape[1:])
+            for k in range(self.iters):
+                self.jitter[k].copy_(draws.uniform(shape))
+        self.reset(pose_init)
+
+    @torch.no_grad()
+    def reset(self, pose_init) -> None:
+        """A fresh Adam from ``pose_init``: the pose, zero moments and
+        steps (Adam makes its state at its first step), no best loss
+        yet."""
+        self.R.copy_(pose_init[:4])
+        self.T.copy_(pose_init[4:])
+        self.best_pose.copy_(pose_init)
+        self.best_loss.fill_(float("inf"))
+        self.it.zero_()
+        for state in self.opt.state.values():
+            for t in state.values():
+                t.zero_()
+
+    def body(self, ms: MapState) -> None:
+        """Iteration ``it`` (see the class's docstring)."""
+        it = self.it
+        with trace.span("track.loss"):
+            i, j, px_color, px_depth = (x.index_select(0, it)[0]
+                                        for x in self.px)
+            loss = self.loss_fn(self.R, self.T, ms, self.quads, i, j,
+                                px_color, px_depth,
+                                _SlotDraws(self.jitter, it))
+        with trace.span("track.grad"):
+            g_R, g_T = torch.autograd.grad(loss, [self.R, self.T])
+            if self.sharded:
+                g = distributed.all_reduce_(torch.cat([g_R, g_T]),
+                                            "track_grad")
+                g_R, g_T = g[:4], g[4:]
+            self.R.grad, self.T.grad = g_R, g_T
+        with trace.span("track.step"), torch.no_grad():
+            pose = torch.cat([self.R, self.T])
+            loss = loss.detach()
+            self.best_pose.copy_(torch.where(loss < self.best_loss, pose,
+                                             self.best_pose))
+            self.best_loss.copy_(torch.minimum(loss, self.best_loss))
+            self.losses.index_copy_(0, it, loss.reshape(1))
+            self.poses.index_copy_(0, it, pose[None])
+            self.opt.step()
+            it.add_(1)
+
+    def capture(self, ms: MapState) -> int:
+        """Run the loaded frame's first iterations eagerly on a side
+        stream (they set up what a capture cannot: the kernel library,
+        cached constants, library handles, Adam's state), then capture
+        the body; a capture runs nothing, so the frame goes on from
+        there.  The capture's K1/K2 launches are kept for the replays and
+        taken back from ``LAUNCHES``.  Returns the iterations run."""
+        dev = self.R.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        warm = min(WARMUP_ITERS, self.iters)
+        with torch.cuda.stream(side):
+            for _ in range(warm):
+                self.body(ms)
+        cur.wait_stream(side)
+        before = dict(cuda_sample.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        # Other threads (the frame prefetcher's uploads) may use the
+        # device while this one captures.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.body(ms)
+        self.launches = {k: n - before[k] for k, n in
+                         cuda_sample.LAUNCHES.items() if n != before[k]}
+        for k, n in self.launches.items():
+            cuda_sample.LAUNCHES[k] -= n
+        self.graph = graph
+        return warm
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            cuda_sample.LAUNCHES[k] += n
+
+
+class TrackCore:
+    """The per-frame optimization (``make_track_core``): the iteration
+    body replayed or run eagerly (the module's docstring)."""
+
+    def __init__(self, loss_fn, iters: int, lr_R: float, lr_T: float,
+                 scene: SceneGeometry, sharded: bool):
+        self.loss_fn = loss_fn
+        self.iters = iters
+        self.lr_R, self.lr_T = lr_R, lr_T
+        # The renderer's one draw per iteration: the depth-guided jitter.
+        self.perturb, self.n_samples = scene.perturb, scene.n_samples
+        self.sharded = sharded
+        self.static: StaticFrame | None = None
+        self.static_key = None
+
+    def __call__(self, ms: MapState, quads, pose_init, px_i, px_j, px_color,
+                 px_depth, draws):
+        px = (px_i, px_j, px_color, px_depth)
+        key = (tuple((x.shape, x.dtype) for x in px),
+               tuple((q.shape, q.dtype) for q in quads), pose_init.device,
+               tuple(p.data_ptr() for p in ms.decoder.parameters()))
+        if key != self.static_key:
+            # The old buffers and graph pool go before the new ones come.
+            self.static = self.static_key = None
+            self.static = StaticFrame(
+                self.loss_fn, self.iters, self.lr_R, self.lr_T,
+                self.sharded, px, quads, pose_init,
+                ((px_i.shape[1], self.n_samples) if self.perturb else None))
+            self.static_key = key
+        st = self.static
+        st.load(quads, pose_init, px, draws)
+        if not replayable(pose_init, self.sharded):
+            for _ in range(self.iters):
+                with trace.span("track.iter"):
+                    st.body(ms)
+            GRAPH_COUNTS["eager_iters"] += self.iters
+        else:
+            done = 0
+            with torch.cuda.device(pose_init.device):
+                if st.graph is None:
+                    with trace.span("track.capture"):
+                        done = st.capture(ms)
+                    GRAPH_COUNTS["captures"] += 1
+                    GRAPH_COUNTS["eager_iters"] += done
+                for _ in range(self.iters - done):
+                    with trace.span("track.iter"):
+                        st.replay()
+            GRAPH_COUNTS["replays"] += self.iters - done
+        return st.best_pose.clone(), st.losses.clone(), st.poses.clone()
 
 
 def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
@@ -50,8 +316,8 @@ def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
     Returns core(ms, quads, pose_init (7,), px_i (iters, n),
     px_j (iters, n), px_color (iters, n, 3) uint8, px_depth (iters, n),
     draws) -> (best_pose (7,), losses (iters,), iter_poses (iters, 7)),
-    all on the device.  ``quads`` are the frozen (sdf, color) quad
-    atlases (``pack_tracking_quads``).
+    all on the device, a ``TrackCore``.  ``quads`` are the frozen (sdf,
+    color) quad atlases (``pack_tracking_quads``).
     """
     t = cfg["tracking"]
     iters = int(t["iters"])
@@ -106,39 +372,7 @@ def make_track_core(cfg: dict, scene: SceneGeometry, cam: Camera,
                        px_color, color, dmask, depth, dmask), weights,
             lambda t: distributed.all_reduce_(t, "track_loss"))
 
-    def core(ms: MapState, quads, pose_init, px_i, px_j, px_color, px_depth,
-             draws):
-        R = pose_init[:4].detach().clone().requires_grad_()
-        T = pose_init[4:].detach().clone().requires_grad_()
-        opt = torch.optim.Adam([{"params": [R], "lr": lr_R},
-                                {"params": [T], "lr": lr_T}],
-                               betas=(0.5, 0.999))
-        best_loss = torch.full((), float("inf"), device=pose_init.device)
-        best_pose = pose_init.detach()
-        losses, poses = [], []
-        for it in range(iters):
-            with trace.span("track.iter"):
-                with trace.span("track.loss"):
-                    loss = loss_fn(R, T, ms, quads, px_i[it], px_j[it],
-                                   px_color[it], px_depth[it], draws)
-                with trace.span("track.grad"):
-                    R.grad, T.grad = torch.autograd.grad(loss, [R, T])
-                    if sharded:
-                        g = distributed.all_reduce_(
-                            torch.cat([R.grad, T.grad]), "track_grad")
-                        R.grad, T.grad = g[:4], g[4:]
-                with trace.span("track.step"):
-                    pose = torch.cat([R, T]).detach()
-                    loss = loss.detach()
-                    best_pose = torch.where(loss < best_loss, pose,
-                                            best_pose)
-                    best_loss = torch.minimum(loss, best_loss)
-                    losses.append(loss)
-                    poses.append(pose)
-                    opt.step()
-        return best_pose, torch.stack(losses), torch.stack(poses)
-
-    return core
+    return TrackCore(loss_fn, iters, lr_R, lr_T, scene, sharded)
 
 
 @torch.no_grad()

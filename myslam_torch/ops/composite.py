@@ -8,6 +8,29 @@
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
+
+
+class CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of an input with no zero
+    element.  The backward is PyTorch's own for that case (the reversed
+    cumulative sum of output x gradient, over the input) without PyTorch's
+    test for zeros, which reads a flag back to the host and so stops a
+    CUDA graph's capture; the gradients are the same bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] == 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1) / x
 
 
 def sdf2alpha(sdf: torch.Tensor, beta) -> torch.Tensor:
@@ -16,8 +39,9 @@ def sdf2alpha(sdf: torch.Tensor, beta) -> torch.Tensor:
 
 def composite_weights(alpha: torch.Tensor) -> torch.Tensor:
     """Rendering weights (..., N): alpha times the exclusive cumulative
-    product of (1 - alpha + 1e-10) along the sample axis."""
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    product of (1 - alpha + 1e-10) along the sample axis (alpha <= 1, so
+    no factor is zero)."""
+    trans = CumprodPositive.apply(1.0 - alpha + 1e-10)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]],
                       dim=-1)
     return alpha * trans

@@ -21,7 +21,10 @@ Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version below, a CUDA tensor launches the kernel or raises.
 There is no fallback from a CUDA tensor to the plain version.
 
-Every launch adds one to ``LAUNCHES[name]``; nothing else touches it.
+Every launch adds one to ``LAUNCHES[name]``.  The one other writer is
+the tracker's replayed iteration (``engine/tracker.py``): a replay of its
+CUDA graph adds the launches the capture recorded, and the capture takes
+its own back, so the counter counts every run on the device.
 """
 
 from __future__ import annotations

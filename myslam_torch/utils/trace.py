@@ -25,8 +25,10 @@ The loop's spans (``engine/scheduler.py``, ``engine/tracker.py``,
     tracked group and a mapped frame, ``sync_after_frame``, the final
     drain, the metrics' read-back, the host-staged window's fetch);
   * ``track.group`` (its first frame) holding ``track.pack`` and, per
-    frame and iteration, ``track.iter`` with ``track.loss``,
-    ``track.grad`` and ``track.step``;
+    frame and iteration, ``track.iter``: with ``track.loss``,
+    ``track.grad`` and ``track.step`` on the tracker's eager path, the
+    launch of one graph replay on its replayed path; ``track.capture``
+    around the replayed path's capture;
   * ``map.frame`` (the mapped frame) holding ``map.select``, per
     iteration ``map.iter`` with ``map.loss``, ``map.backward`` and
     ``map.step``, then ``map.writeback``;

@@ -850,3 +850,105 @@ def test_codec_round_trips_on_this_host(dev):
         np.int64) - rgb)
     assert err.max() <= chip_smoke.JPEG_Q95_MAX_ERR
     assert err.mean() <= chip_smoke.JPEG_Q95_MEAN_ERR
+
+
+@pytest.mark.cuda
+def test_replayed_tracker_matches_the_eager_one(dev, monkeypatch):
+    """The group tracker's replayed iterations (``engine/tracker.py``)
+    against its eager ones on the card, over two groups of two frames with
+    the atlases and decoders changed in place between them, as a mapping
+    step changes them: losses within the benchmark's ``track_loss_gap``,
+    each iteration's pose within ``track_step_gap`` of that iteration's
+    step (``slambench/limits/replica_dense.json``); K1/K2 launches per
+    group equal to the eager path's; one capture for both groups (its
+    frame's first iterations run eagerly), and another for a changed
+    pixel count."""
+    import json
+
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.engine import tracker
+    from test_torch_track_graph import ITERS, _frames, _setup
+
+    with open("slambench/limits/replica_dense.json") as f:
+        limits = json.load(f)["limits"]
+    cfg, scene, cam, ms = _setup()
+    for name in ("sdf_atlas", "color_atlas"):
+        setattr(ms, name, getattr(ms, name).detach().to(dev)
+                .requires_grad_())
+    ms.decoder.to(dev)
+    start = [p.detach().clone() for p in
+             (ms.sdf_atlas, ms.color_atlas, *ms.decoder.parameters())]
+    frames = _frames(cam) * 2
+    est0 = torch.eye(4, device=dev).repeat(8, 1, 1)
+    est0[:, 2, 3] = -0.6 + 0.01 * torch.arange(8, device=dev)
+
+    def stack(k, g):
+        return torch.stack([f[k].to(dev) for f in frames[2 * g:2 * g + 2]])
+
+    def run(n_px=None):
+        with torch.no_grad():
+            for p, s in zip((ms.sdf_atlas, ms.color_atlas,
+                             *ms.decoder.parameters()), start):
+                p.copy_(s)
+        group = tracker.make_group_tracker(cfg, scene, cam)
+        est = est0.clone()
+        draws = TorchDraws(11, dev)
+        outs, launches = [], []
+        for g in range(2):
+            before = sum(cuda_sample.LAUNCHES[k] for k in
+                         ("plane_sample_fwd", "plane_sample_bwd"))
+            px = [stack(k, g)[:, :, :n_px] for k in (1, 2, 3, 4)]
+            outs.append(group(ms, est, 2 + 2 * g, *px, draws))
+            torch.cuda.synchronize()
+            launches.append(sum(cuda_sample.LAUNCHES[k] for k in
+                                ("plane_sample_fwd", "plane_sample_bwd"))
+                            - before)
+            with torch.no_grad():  # a mapping step, in place
+                ms.sdf_atlas.mul_(1.05).add_(0.01)
+                ms.color_atlas.mul_(0.95)
+                for p in ms.decoder.parameters():
+                    p.mul_(1.02)
+        return outs, launches, est
+
+    counts0 = dict(tracker.GRAPH_COUNTS)
+    graph, graph_launches, graph_est = run()
+    counts1 = dict(tracker.GRAPH_COUNTS)
+    warm = min(tracker.WARMUP_ITERS, ITERS)
+    assert counts1["captures"] - counts0["captures"] == 1
+    assert counts1["replays"] - counts0["replays"] == 4 * ITERS - warm
+    assert counts1["eager_iters"] - counts0["eager_iters"] == warm
+
+    own = cuda_sample.plane_sample_fwd
+    monkeypatch.setattr(cuda_sample, "plane_sample_fwd",
+                        lambda *a, **k: own(*a, **k))
+    eager, eager_launches, eager_est = run()
+    monkeypatch.undo()
+    counts2 = dict(tracker.GRAPH_COUNTS)
+    assert counts2["eager_iters"] - counts1["eager_iters"] == 4 * ITERS
+    assert counts2["replays"] == counts1["replays"]
+
+    assert graph_launches == eager_launches == [2 * ITERS * 4] * 2
+    for (_, gf, gb, gp), (_, ef, eb, ep) in zip(graph, eager):
+        for got, want in ((gf, ef), (gb, eb)):
+            gap = ((got - want).abs() / want.abs()).max()
+            assert float(gap) <= limits["track_loss_gap"]
+        steps = (ep[:, 1:] - ep[:, :-1]).norm(dim=-1)
+        gaps = (gp[:, 1:] - ep[:, 1:]).norm(dim=-1) / steps.clamp(
+            min=float(steps.median()))
+        assert float(gaps.max()) <= limits["track_step_gap"]
+    torch.testing.assert_close(graph_est, eager_est, rtol=0, atol=1e-4)
+
+    # A changed pixel count captures again.
+    run(n_px=48)
+    assert tracker.GRAPH_COUNTS["captures"] - counts2["captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 40), (7, 1), (2, 3, 8)])
+def test_cumprod_positive_matches_torch_bit_for_bit_on_the_card(dev, shape):
+    """Compositing's cumulative product (``ops/composite.py``, mapping's
+    and tracking's) against ``torch.cumprod`` on the card: the same
+    values and gradients, bit for bit."""
+    from test_torch_track_graph import check_cumprod_positive
+
+    check_cumprod_positive(shape, dev)
