@@ -37,8 +37,14 @@ from myslam_torch.ops.plane_sample import (
     reduced_row_map,
     sample_fused,
 )
+from myslam_torch.utils import trace
 
 _const_cache: dict = {}
+
+# The importance branch's coarse passes (``build_z_vals_core``): passes,
+# the rays given to the coarse pass and its SDF points.  Host integers
+# from the tensors' shapes: no device read, no launch.
+IMPORTANCE_COUNTS = {"passes": 0, "rays": 0, "points": 0}
 
 
 def _row_map(layout: PlaneLayout, device) -> torch.Tensor:
@@ -164,20 +170,27 @@ def build_z_vals_core(draws, scene: SceneGeometry, rays_o, rays_d, gt_depth,
         scene.n_importance, scene.perturb)
     if not importance:
         return z_depth
-    bound = scene.bound_tensor(rays_o.device)
-    rays_o_ng = rays_o.detach()
-    rays_d_ng = rays_d.detach()
-    far = ray_aabb_exit_t(rays_o_ng, rays_d_ng, bound) + 0.01
-    z_uni = uniform_z_vals(draws, far, scene.n_stratified, scene.perturb)
-    pts_uni = rays_o_ng[:, None, :] + rays_d_ng[:, None, :] * z_uni[..., None]
-    p_nor = normalize_3d_coordinate(pts_uni.reshape(-1, 3), bound)
-    sdf_uni = q.sdf_ng(p_nor).reshape(z_uni.shape)
-    alpha_uni = sdf2alpha(sdf_uni, q.beta_ng)
-    w_uni = composite_weights(alpha_uni)
-    z_mid = 0.5 * (z_uni[..., 1:] + z_uni[..., :-1])
-    z_samples = sample_pdf(draws, z_mid, w_uni[..., 1:-1], scene.n_importance)
-    z_nodepth = torch.sort(torch.cat([z_uni, z_samples], dim=-1),
-                           dim=-1).values
+    n_rays = rays_o.shape[0]
+    IMPORTANCE_COUNTS["passes"] += 1
+    IMPORTANCE_COUNTS["rays"] += n_rays
+    IMPORTANCE_COUNTS["points"] += n_rays * scene.n_stratified
+    with trace.span("render.importance"):
+        bound = scene.bound_tensor(rays_o.device)
+        rays_o_ng = rays_o.detach()
+        rays_d_ng = rays_d.detach()
+        far = ray_aabb_exit_t(rays_o_ng, rays_d_ng, bound) + 0.01
+        z_uni = uniform_z_vals(draws, far, scene.n_stratified, scene.perturb)
+        pts_uni = (rays_o_ng[:, None, :]
+                   + rays_d_ng[:, None, :] * z_uni[..., None])
+        p_nor = normalize_3d_coordinate(pts_uni.reshape(-1, 3), bound)
+        sdf_uni = q.sdf_ng(p_nor).reshape(z_uni.shape)
+        alpha_uni = sdf2alpha(sdf_uni, q.beta_ng)
+        w_uni = composite_weights(alpha_uni)
+        z_mid = 0.5 * (z_uni[..., 1:] + z_uni[..., :-1])
+        z_samples = sample_pdf(draws, z_mid, w_uni[..., 1:-1],
+                               scene.n_importance)
+        z_nodepth = torch.sort(torch.cat([z_uni, z_samples], dim=-1),
+                               dim=-1).values
     return torch.where((gt_depth > 0)[:, None], z_depth, z_nodepth)
 
 

@@ -16,7 +16,8 @@ the spans are on the device trace's clock and are the parents of the
 operations launched inside them.
 
 The loop's spans (``engine/scheduler.py``, ``engine/tracker.py``,
-``engine/mapper.py``, ``utils/datasets.py``), on the loop's thread:
+``engine/mapper.py``, ``render/renderer.py``, ``utils/datasets.py``), on
+the loop's thread:
 
   * ``frame`` (the frame's index): the body of ``run_loop``'s iteration;
   * ``prefetch_wait``: the loop's wait for its next packet
@@ -32,6 +33,9 @@ The loop's spans (``engine/scheduler.py``, ``engine/tracker.py``,
   * ``map.frame`` (the mapped frame) holding ``map.select``, per
     iteration ``map.iter`` with ``map.loss``, ``map.backward`` and
     ``map.step``, then ``map.writeback``;
+  * ``render.importance`` (``render/renderer.py``): the importance
+    branch's coarse SDF pass, ``sample_pdf`` and the sort, under the
+    caller's span (``map.loss`` on mapping's path);
   * ``post_map``: the periodic checkpoint and mesh.
 
 ``write_chrome_trace`` writes records as a Chrome trace (``run_torch.py

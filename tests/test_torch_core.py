@@ -341,6 +341,53 @@ def test_camera_matches_jax(cam):
         JCamera.from_cfg({"cam": cam}).__dict__
 
 
+def test_tum_cell_camera_and_schedule_match_their_source():
+    """slambench's ``tum`` configuration holds freiburg1_desk.yaml's
+    camera after its resize and crop, and every other key as the source
+    chain (myslam.yaml, tum.yaml, freiburg1_desk.yaml) gives it, but the
+    keys its ``set`` names."""
+    import json
+
+    from myslam_torch.engine.camera import Camera
+    from myslam_torch.utils.config import DEFAULT_CONFIG, load_config
+
+    src = load_config("configs/TUM_RGBD/freiburg1_desk.yaml",
+                      DEFAULT_CONFIG)
+    with open("slambench/configs/tum.json") as f:
+        tum = json.load(f)
+    cam, want = tum["config"]["cam"], Camera.from_cfg(src)
+    assert (cam["H"], cam["W"]) == (want.H, want.W) == (368, 496)
+    for k in ("fx", "fy", "cx", "cy"):
+        assert abs(cam[k] - getattr(want, k)) < 1e-9, k
+    assert Camera.from_cfg(tum["config"]) == Camera(
+        H=368, W=496, fx=cam["fx"], fy=cam["fy"], cx=cam["cx"],
+        cy=cam["cy"])
+
+    def flat(d, pre=""):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flat(v, pre + k + "."))
+            else:
+                out[pre + k] = v
+        return out
+
+    def kept(key):
+        return not any(key == s or key.startswith(s + ".")
+                       for s in list(tum["set"]) + ["inherit_from", "data"])
+
+    got, ref = flat(tum["config"]), flat(src)
+    assert {k for k in ref if kept(k)} == {k for k in got if kept(k)}
+    for k in ref:
+        if kept(k):
+            assert got[k] == ref[k], k
+    for k in ("tracking.iters", "tracking.pixels", "mapping.iters",
+              "mapping.pixels", "mapping.every_frame",
+              "mapping.keyframe_every", "rendering.n_stratified",
+              "rendering.learnable_beta", "mapping.bound"):
+        assert kept(k), k
+
+
 def test_config_matches_jax():
     from myslam_tpu.utils.config import DEFAULT_CONFIG as JDEFAULT
     from myslam_tpu.utils.config import load_config as jload

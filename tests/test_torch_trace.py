@@ -252,3 +252,51 @@ def test_annotated_spans_under_the_profiler(tmp_path):
                          if d.name.startswith("aten::"))
                      for e in by_name["track.iter"]])
     assert aten[0] == aten[1] and len(aten[0]) == 2 and min(aten[0]) > 0
+
+
+def test_importance_span_and_counts():
+    """The renderer's importance branch: one ``render.importance`` span
+    per pass under the caller's span, only with the tracer on and never
+    without ``importance``; ``IMPORTANCE_COUNTS`` adds one pass, the rays
+    and rays x ``n_stratified`` coarse points per pass, and nothing
+    without ``importance``."""
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.models.config import get_model
+    from myslam_torch.models.planes import init_map_state
+    from myslam_torch.render import renderer
+
+    cfg = load_config("configs/Synthetic/room_smoke.yaml", DEFAULT_CONFIG)
+    cfg["rendering"].update(n_stratified=4, n_importance=2)
+    scene = renderer.scene_from_cfg(cfg)
+    gen = torch.Generator().manual_seed(0)
+    ms = init_map_state(gen, scene.sdf_layout, scene.color_layout,
+                        get_model(cfg, gen))
+    R = 16
+    rays_o = torch.tensor(scene.bound, dtype=torch.float32).mean(1)
+    rays_o = rays_o.expand(R, 3).contiguous()
+    rays_d = torch.randn((R, 3), generator=gen)
+    depth = torch.rand((R,), generator=gen) + 0.5
+    depth[::4] = 0.0
+    counts = renderer.IMPORTANCE_COUNTS
+
+    def render(importance):
+        before = dict(counts)
+        renderer.render_rays(TorchDraws(1, "cpu"), ms, scene, rays_o,
+                             rays_d, depth, importance)
+        return {k: counts[k] - before[k] for k in counts}
+
+    one = {"passes": 1, "rays": R, "points": R * 4}
+    none = {"passes": 0, "rays": 0, "points": 0}
+    assert render(True) == one and render(False) == none
+    assert trace.take() == []
+    trace.enable()
+    with trace.span("map.loss", 3) as caller:
+        assert render(True) == one
+        assert render(False) == none
+        assert render(True) == one
+    trace.disable()
+    assert render(True) == one
+    recs = trace.take()
+    imp = [r for r in recs if r.name == "render.importance"]
+    assert len(imp) == 2 and len(recs) == 3
+    assert all(r.parent == caller.id and r.frame == 3 for r in imp)
