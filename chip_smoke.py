@@ -1002,6 +1002,56 @@ def check_graph_counts(phase: str, counts: dict, iters: int, tracked: int,
                              "iterations")
 
 
+def map_mode(parallel: str, plan: dict, world: int, host_mode: bool,
+             cuda: bool) -> str | None:
+    """How a system's mapping iterations run (``engine/mapper.py``):
+    "replay" through the frame mapper's captured graph, "eager" without
+    a graph (the host-staged store's window mapper and ray DP's sharded
+    mappers in the eager loop, map shards' banded backend and the CPU in
+    the frame mapper's body run eagerly), or
+    None where keyframe-sharded BA maps (its own loop, which
+    ``mapper.GRAPH_COUNTS`` does not count)."""
+    kf_rows = {"kf": world, "kfdp": plan.get("kf")}.get(parallel, 1)
+    if kf_rows and kf_rows > 1:
+        return None
+    if (not cuda or host_mode or parallel in ("dp", "map")
+            or (parallel == "pipeline" and plan["map"] > 1)):
+        return "eager"
+    return "replay"
+
+
+def check_map_graph_counts(phase: str, counts: dict, frames: list,
+                           mode: str | None) -> None:
+    """Every mapping iteration ran once, replayed or eagerly
+    (``engine/mapper.GRAPH_COUNTS``).  ``frames``: (iterations,
+    importance, panels) of each mapped frame in order; ``mode`` as
+    ``map_mode`` says.  Replayed, each of the two mappers (with and
+    without the importance branch) captures at its first frame without
+    panels that has more than ``WARMUP_ITERS`` iterations, whose first
+    ``WARMUP_ITERS`` run eagerly, and replays every later iteration; a
+    frame with panels runs eagerly."""
+    from myslam_torch.engine.mapper import WARMUP_ITERS
+
+    want = {"captures": 0, "replays": 0, "eager_iters": 0}
+    captured = set()
+    for iters, importance, panels in frames if mode else ():
+        if mode == "eager" or panels:
+            want["eager_iters"] += iters
+            continue
+        done = 0
+        if importance not in captured:
+            done = min(WARMUP_ITERS, iters)
+            want["eager_iters"] += done
+            if iters > done:
+                captured.add(importance)
+                want["captures"] += 1
+        want["replays"] += iters - done
+    if dict(counts) != want:
+        raise AssertionError(f"{phase}: mapping ran {counts}, expected "
+                             f"{want} ({mode}) for the mapped frames "
+                             f"{frames}")
+
+
 def run_slam(cfg, phase: str = "slam",
              config: str = "configs/Synthetic/room.yaml",
              setup=None) -> tuple:
@@ -1015,7 +1065,7 @@ def run_slam(cfg, phase: str = "slam",
     import numpy as np
     import torch
 
-    from myslam_torch.engine import tracker
+    from myslam_torch.engine import mapper, tracker
     from myslam_torch.engine.scheduler import SLAMSystem
     from myslam_torch.ops import cuda_sample
 
@@ -1069,6 +1119,17 @@ def run_slam(cfg, phase: str = "slam",
             return out
         return wrapped
 
+    # The mapped frames given panels (they map eagerly).
+    hooked = set()
+    make_hook = slam._make_map_vis_hook
+
+    def noted_hook(idx, pkt):
+        hook = make_hook(idx, pkt)
+        if hook is not None:
+            hooked.add(idx)
+        return hook
+
+    slam._make_map_vis_hook = noted_hook
     n_px = slam.cam.H * slam.cam.W
     n_chunks = -(-n_px // min(IMAGE_CHUNK, n_px))
     for vis in (slam.track_vis, slam.map_vis):
@@ -1078,6 +1139,7 @@ def run_slam(cfg, phase: str = "slam",
     torch.cuda.reset_peak_memory_stats()
     cuda_sample.reset_launches()
     tracker.GRAPH_COUNTS.update(captures=0, replays=0, eager_iters=0)
+    mapper.GRAPH_COUNTS.update(captures=0, replays=0, eager_iters=0)
     t0 = time.perf_counter()
     slam.run_loop()
     torch.cuda.synchronize()
@@ -1113,6 +1175,13 @@ def run_slam(cfg, phase: str = "slam",
     graph_counts = dict(tracker.GRAPH_COUNTS)
     check_graph_counts(phase, graph_counts, t_iters, len(tracked),
                        slam.device.type == "cuda" and not slam.track_sharded)
+    map_graph_counts = dict(mapper.GRAPH_COUNTS)
+    check_map_graph_counts(
+        phase, map_graph_counts,
+        [(r["map_iters"], r["map_importance"], r["frame"] in hooked)
+         for r in mapped],
+        map_mode(slam.parallel, slam.plan, slam.n_proc,
+                 slam.store.host_mode, slam.device.type == "cuda"))
     losses = [v for r in slam.frame_log for k, v in r.items()
               if "loss" in k]
     if not all(math.isfinite(v) for v in losses):
@@ -1141,7 +1210,7 @@ def run_slam(cfg, phase: str = "slam",
         "map_ms_frame0": mapped[0]["map_ms"],
         "frame0_s": mapped[0]["map_ms"] / 1e3,
         "wall_s": wall, "ate_rmse_cm": ate_cm, "launches": launches,
-        "graph_counts": graph_counts,
+        "graph_counts": graph_counts, "map_graph_counts": map_graph_counts,
         "expected_launches": expected, "mesh_launches": meshes,
         "panel_launches": launch_sum(panels), "panels": len(panels),
         "calls": sample_calls(slam),
@@ -2215,6 +2284,13 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
                            rec["track_iters"], rec["tracked_frames"],
                            rec["device"].startswith("cuda")
                            and not rec["track_sharded"])
+        check_map_graph_counts(
+            f"{phase} rank {r}", rec["map_graph_counts"],
+            [(n, imp, False) for n, imp in zip(rec["map_iters"],
+                                               rec["map_importance"])],
+            map_mode(rec["parallel"], rec["plan"], rec["world"],
+                     rec["store_mode"] == "host_staged",
+                     rec["device"].startswith("cuda")))
         if grads and rec["grad_allreduces"] != rec["map_iters"]:
             raise AssertionError(
                 f"{phase}: rank {r} gradient all-reduces per mapped frame "
@@ -2240,6 +2316,7 @@ def run_gang(phase: str, config: str, ate_gate_cm: float = 2.0,
               "tracked_frames": rec["tracked_frames"],
               "track_sharded": rec["track_sharded"],
               "graph_counts": rec["graph_counts"],
+              "map_graph_counts": rec["map_graph_counts"],
               "grad_allreduces_per_mapped_frame": rec["grad_allreduces"],
               "ba_moves_m": rec["ba_moves_m"],
               "grad_allreduce_bytes": grad["bytes"] // calls,

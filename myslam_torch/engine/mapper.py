@@ -45,10 +45,41 @@ replicated one.  The optimizer is built fresh for each mapped frame, so
 no sharded moment outlives the frame or reaches a checkpoint.  One rank
 is exactly the unsharded path.
 
+``make_frame_mapper`` runs every frame that is not ``sharded`` through
+one iteration body over fixed buffers (``StaticMap.body``: the loss and
+its backward, the draws read from slots the host fills before each
+iteration in the eager loop's order), with Adam's step a Python call
+after each iteration (``MapGraph``).  How the body runs is chosen by
+what the call can observe (``replayable``), never by a setting:
+
+  * replayed, on a CUDA device over the default map backend (no
+    ``queries_factory``), while the sample's entry points are
+    ``cuda_sample``'s own (``tracker.replayable``'s test) and no
+    ``vis_hook`` is given for the frame: the body is captured once as a
+    CUDA graph and replayed;
+  * eager otherwise: Python launches every operation of every
+    iteration.  That covers CPU tensors, map shards' banded backend, a
+    replaced sample entry point (a graph replays only the kernels its
+    capture saw, so a recorder of K1's and K2's calls would see the
+    capture's alone) and frames with panels.
+
+The ``sharded`` frame mappers, ``make_mapper`` and
+``make_window_frame_mapper`` (the host-staged store's) run the eager
+loop ``_iterate`` instead, whose steps cross the ranks.
+
+``GRAPH_COUNTS`` counts captures, replayed iterations and iterations run
+eagerly (a capturing frame's first ones among them) by this module's
+mappers.  A replay adds the K1/K2 launches and the importance branch's
+passes that its capture recorded to ``cuda_sample.LAUNCHES`` and
+``renderer.IMPORTANCE_COUNTS``, and a capture takes its own back, so the
+counters still count every run on the device.
+
 Spans (``utils/trace.py``): ``map.select`` (the scratch write and the
-window's pick), per iteration ``map.iter`` holding ``map.loss``,
-``map.backward`` and ``map.step``, and ``map.writeback`` (the window's
-poses back to the store).
+window's pick), per iteration ``map.iter``, holding ``map.loss``,
+``map.backward`` and ``map.step`` when the iteration runs eagerly and
+the launch of one replay and ``map.step`` when it is replayed;
+``map.capture`` around a capture and the eager iterations before it;
+and ``map.writeback`` (the window's poses back to the store).
 """
 
 from __future__ import annotations
@@ -61,15 +92,18 @@ from myslam_torch.core.losses import color_loss, depth_loss, \
 from myslam_torch.core.quaternion import cam_pose_to_matrix, \
     matrix_to_cam_pose
 from myslam_torch.core.sampling import RowShardDraws, rank_rows
+from myslam_torch.engine import tracker
 from myslam_torch.engine.camera import Camera
 from myslam_torch.engine.keyframes import KeyframeStore
 from myslam_torch.models.planes import MapState
+from myslam_torch.ops import cuda_sample
 from myslam_torch.ops.pixel_gather import gather_rgb, gather_scalar, \
     gather_u16
 from myslam_torch.parallel import distributed
-from myslam_torch.render.renderer import SceneGeometry, make_queries, \
-    render_core
+from myslam_torch.render.renderer import IMPORTANCE_COUNTS, SceneGeometry, \
+    make_queries, render_core
 from myslam_torch.utils import trace
+from myslam_torch.utils.graphs import CountedGraph
 
 
 # Atlases of at least this many rows have their Adam moments row-sharded
@@ -78,6 +112,13 @@ ZERO_MIN_ROWS = 4096
 # Bytes of Adam's moments of the atlases on this rank in the last mapped
 # frame, and what a replicated Adam holds (chip_smoke.py reads them).
 ADAM_BYTES = {"atlas_moments": 0, "atlas_moments_replicated": 0}
+# A capturing frame's first iterations, run eagerly on a side stream
+# before the capture (``StaticMap.capture``).
+WARMUP_ITERS = 2
+# How often mapping took each path (see the module's docstring).
+GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_iters": 0}
+# The host counters a captured iteration adds to and a replay must too.
+_REPLAYED_COUNTERS = (cuda_sample.LAUNCHES, IMPORTANCE_COUNTS)
 
 
 def map_quad_dtype(cfg: dict):
@@ -291,6 +332,15 @@ class RowShardedAdam:
         return own, full
 
 
+@torch.no_grad()
+def _show(vis_hook, it: int, ms: MapState, poses, n_slots) -> None:
+    """``vis_hook`` before iteration ``it``: the map and the current
+    frame's pose (slot ``n_slots - 1`` of ``poses``)."""
+    cur = torch.as_tensor(n_slots, device=poses.device)
+    pose = poses.detach().index_select(0, cur.reshape(1) - 1)
+    vis_hook(it, ms, cam_pose_to_matrix(pose)[0])
+
+
 def _iterate(loss_fn, make_optimizer, ms: MapState, poses, pose_mask,
              lines, n_slots, imagery, draws, iters: int, lr_factor: float,
              sharded: bool, vis_hook=None, vis_every: int = 1,
@@ -306,10 +356,7 @@ def _iterate(loss_fn, make_optimizer, ms: MapState, poses, pose_mask,
     losses = []
     for it in range(iters):
         if vis_hook is not None and it > 0 and it % vis_every == 0:
-            with torch.no_grad():
-                cur = torch.as_tensor(n_slots, device=poses.device)
-                pose = poses.detach().index_select(0, cur.reshape(1) - 1)
-                vis_hook(it, ms, cam_pose_to_matrix(pose)[0])
+            _show(vis_hook, it, ms, poses, n_slots)
         with trace.span("map.iter"):
             (zero or opt).zero_grad()
             with trace.span("map.loss"):
@@ -325,6 +372,7 @@ def _iterate(loss_fn, make_optimizer, ms: MapState, poses, pose_mask,
                         distributed.all_reduce_grads(params)
                     opt.step()
             losses.append(loss.detach())
+    GRAPH_COUNTS["eager_iters"] += iters
     if zero is not None:
         own, full = zero.moment_bytes()
         ADAM_BYTES.update(atlas_moments=own, atlas_moments_replicated=full)
@@ -332,12 +380,268 @@ def _iterate(loss_fn, make_optimizer, ms: MapState, poses, pose_mask,
         (0,), device=poses.device)
 
 
+def replayable(t: torch.Tensor, sharded: bool, own_queries: bool,
+               vis_hook=None) -> bool:
+    """Whether a frame's iterations replay one captured graph: ``t`` on a
+    CUDA device, without collectives (not ``sharded``) and with the
+    sample's entry points not replaced (``tracker.replayable``), over the
+    default map backend (``own_queries``), and with no panels
+    (``vis_hook`` None)."""
+    return (tracker.replayable(t, sharded) and own_queries
+            and vis_hook is None)
+
+
+class _DrawProbe:
+    """Passes a draw source's draws through and notes each call: the
+    schedule of one iteration's draws (kind, shape, range), and the
+    draws."""
+
+    def __init__(self, base):
+        self.base = base
+        self.calls: list = []
+        self.drawn: list = []
+
+    def uniform(self, shape) -> torch.Tensor:
+        t = self.base.uniform(shape)
+        self.calls.append(("uniform", tuple(shape), None, None))
+        self.drawn.append(t)
+        return t
+
+    def randint(self, shape, low: int, high: int) -> torch.Tensor:
+        t = self.base.randint(shape, low, high)
+        self.calls.append(("randint", tuple(shape), int(low), int(high)))
+        self.drawn.append(t)
+        return t
+
+
+class _SlotDraws:
+    """The iteration body's draw source: the slots the host filled for
+    the iteration, served in the schedule's order.  A draw of another
+    kind, shape or range than the schedule's next one, or past its end,
+    raises; so does ``done`` before the schedule's end."""
+
+    __slots__ = ("schedule", "slots", "next")
+
+    def __init__(self, schedule, slots):
+        self.schedule, self.slots, self.next = schedule, slots, 0
+
+    def _take(self, call) -> torch.Tensor:
+        k = self.next
+        want = self.schedule[k] if k < len(self.schedule) else None
+        if call != want:
+            raise ValueError(f"the mapping iteration drew {call}; its slot "
+                             f"{k} holds {want}")
+        self.next = k + 1
+        return self.slots[k]
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._take(("uniform", tuple(shape), None, None))
+
+    def randint(self, shape, low: int, high: int) -> torch.Tensor:
+        return self._take(("randint", tuple(shape), int(low), int(high)))
+
+    def done(self) -> None:
+        if self.next != len(self.schedule):
+            raise ValueError(f"the mapping iteration drew {self.next} of "
+                             f"its {len(self.schedule)} slots")
+
+
+class StaticMap:
+    """One mapper's iteration over fixed buffers: what the body reads and
+    writes, and so what a captured graph of it replays.
+
+    ``body`` runs iteration ``it`` (a device int64 index) of the loaded
+    frame from the buffers alone: the window's pose leaf ``poses``
+    (w_max, 7), ``pose_mask``, the imagery rows ``lines`` and ``n_slots``
+    (0-dim), each copied in per frame (``load``); the store's imagery,
+    preallocated and so at a fixed address; the map's atlases and
+    decoders, which Adam updates in place; the iteration's draws, from
+    the slots (``fill``).  It writes the loss into row ``it`` of
+    ``losses``, the gradients of ``params`` (the frame optimizer's
+    parameters, in its order) as their ``.grad``, and ``it + 1``.  A
+    capture's gradients are the graph's outputs, which each replay
+    rewrites in place; ``load`` points the parameters' ``.grad`` at
+    them."""
+
+    def __init__(self, loss_fn, imagery, w_max: int, rows: int, device):
+        self.loss_fn = loss_fn
+        self.imagery = imagery
+        self.poses = torch.zeros((w_max, 7), device=device,
+                                 requires_grad=True)
+        self.pose_mask = torch.zeros(w_max, device=device)
+        self.lines = torch.zeros(w_max, dtype=torch.int64, device=device)
+        self.n_slots = torch.zeros((), dtype=torch.int64, device=device)
+        self.losses = torch.zeros(rows, device=device)
+        self.it = torch.zeros(1, dtype=torch.int64, device=device)
+        self.params: list = []
+        # One iteration's draws: (kind, shape, low, high) in call order,
+        # from the first iteration these buffers run, and their slots.
+        self.schedule: list | None = None
+        self.slots: list = []
+        self.graph: CountedGraph | None = None
+
+    @torch.no_grad()
+    def load(self, c2ws, pose_mask, lines, n_slots) -> None:
+        """A frame's window in place: the start poses of ``c2ws`` (w_max,
+        4, 4), the pose mask, the imagery rows, the slot count; row 0 for
+        the first loss; the graph's gradients as the ``.grad`` of the
+        parameters (an eager frame in between may have dropped them)."""
+        self.poses.copy_(matrix_to_cam_pose(c2ws))
+        self.pose_mask.copy_(pose_mask)
+        self.lines.copy_(lines)
+        self.n_slots.copy_(torch.as_tensor(n_slots))
+        self.it.zero_()
+        if self.graph is not None:
+            for p, g in zip(self.params, self.graph.out):
+                p.grad = g
+
+    @torch.no_grad()
+    def fill(self, draws) -> None:
+        """The iteration's draws from ``draws``, made as the eager loop
+        makes them (the schedule's calls in its order), into the slots."""
+        for (kind, shape, low, high), slot in zip(self.schedule,
+                                                  self.slots):
+            slot.copy_(draws.uniform(shape) if kind == "uniform"
+                       else draws.randint(shape, low, high))
+
+    def body(self, ms: MapState, draws) -> tuple:
+        """Iteration ``it`` (see the class's docstring); returns the
+        gradients."""
+        with trace.span("map.loss"):
+            loss = self.loss_fn(ms, self.poses, self.pose_mask, self.lines,
+                                self.n_slots, *self.imagery, draws)
+        with trace.span("map.backward"):
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            with torch.no_grad():
+                self.losses.index_copy_(0, self.it, loss.detach().reshape(1))
+                self.it.add_(1)
+        return grads
+
+    def iterate(self, ms: MapState, draws, step) -> None:
+        """One iteration run eagerly: the body on the iteration's draws
+        (the first iteration of these buffers takes them through a probe
+        that notes the schedule, later ones from the slots), then
+        ``step``."""
+        with trace.span("map.iter"):
+            if self.schedule is None:
+                probe = _DrawProbe(draws)
+                self.body(ms, probe)
+                self.schedule = probe.calls
+                self.slots = [torch.empty_like(t) for t in probe.drawn]
+            else:
+                self.fill(draws)
+                slots = _SlotDraws(self.schedule, self.slots)
+                self.body(ms, slots)
+                slots.done()
+            with trace.span("map.step"):
+                step()
+
+    def capture(self, ms: MapState, draws, step, warm: int) -> None:
+        """Run the frame's first ``warm`` iterations eagerly (they set up
+        the draw slots too), then capture the body
+        (``utils/graphs.CountedGraph``, which keeps what the capture
+        added to ``_REPLAYED_COUNTERS`` for the replays); a capture runs
+        nothing, so the frame goes on from there."""
+
+        def warm_up():
+            for _ in range(warm):
+                self.iterate(ms, draws, step)
+
+        def capture_body():
+            slots = _SlotDraws(self.schedule, self.slots)
+            grads = self.body(ms, slots)
+            slots.done()
+            return grads
+
+        self.graph = CountedGraph(self.poses.device, warm_up, capture_body,
+                                  _REPLAYED_COUNTERS)
+
+
+class MapGraph:
+    """A frame mapper's iterations over ``StaticMap``'s buffers, a fresh
+    Adam (``make_optimizer``) per frame whose step is a Python call after
+    each iteration: replayed from a graph captured at the mapper's first
+    replayable frame, or run eagerly (``replay`` False, see the module's
+    docstring).  The buffers and the graph are made again when the
+    window's size, or the storage or identity of an atlas, a decoder
+    parameter or the imagery change (a resume, a checkpoint load), or
+    when a frame has more iterations than the losses have rows.  The
+    pixel count, the importance branch and the quads' dtype are the
+    mapper's own, and each mapper holds its graph: a run captures once
+    per mapper."""
+
+    def __init__(self, loss_fn, make_optimizer):
+        self.loss_fn = loss_fn
+        self.make_optimizer = make_optimizer
+        self.static: StaticMap | None = None
+        self.key = None
+
+    def __call__(self, ms: MapState, c2ws, pose_mask, lines, n_slots,
+                 imagery, draws, iters: int, lr_factor: float, replay: bool,
+                 vis_hook=None, vis_every: int = 1):
+        """``iters`` steps from the window's poses ``c2ws`` (w_max, 4, 4);
+        ``vis_hook`` and ``vis_every`` as ``_optimize_window``'s (an eager
+        frame's alone).  Returns the pose leaf (w_max, 7) after the last
+        step and the losses (iters,), a copy of the buffer's rows."""
+        dev = c2ws.device
+        leaves = [ms.sdf_atlas, ms.color_atlas, *ms.decoder.parameters(),
+                  *(t for t in imagery if t is not None)]
+        key = (dev, c2ws.shape[0],
+               tuple((id(t), t.data_ptr()) for t in leaves))
+        if key != self.key or iters > self.static.losses.shape[0]:
+            # The old buffers and graph pool go before the new ones come.
+            self.static = self.key = None
+            self.static = StaticMap(self.loss_fn, imagery, c2ws.shape[0],
+                                    max(iters, 1), dev)
+            self.key = key
+        st = self.static
+        st.load(c2ws, pose_mask, lines, n_slots)
+        opt = self.make_optimizer(ms, st.poses, lr_factor)
+        params = optimizer_params(opt)
+        if st.graph is None:
+            st.params = params
+        elif len(params) != len(st.params) or any(
+                a is not b for a, b in zip(params, st.params)):
+            raise RuntimeError("the mapping optimizer's parameters are not "
+                               "the captured graph's")
+        if not replay:
+            for it in range(iters):
+                if vis_hook is not None and it > 0 and it % vis_every == 0:
+                    _show(vis_hook, it, ms, st.poses, st.n_slots)
+                st.iterate(ms, draws, opt.step)
+            GRAPH_COUNTS["eager_iters"] += iters
+        else:
+            done = 0
+            with torch.cuda.device(dev):
+                if st.graph is None:
+                    done = min(WARMUP_ITERS, iters)
+                    if iters > done:
+                        with trace.span("map.capture"):
+                            st.capture(ms, draws, opt.step, done)
+                        GRAPH_COUNTS["captures"] += 1
+                    else:
+                        for _ in range(done):
+                            st.iterate(ms, draws, opt.step)
+                    GRAPH_COUNTS["eager_iters"] += done
+                for _ in range(iters - done):
+                    with trace.span("map.iter"):
+                        st.fill(draws)
+                        st.graph.replay()
+                        with trace.span("map.step"):
+                            opt.step()
+            GRAPH_COUNTS["replays"] += iters - done
+        return st.poses, st.losses[:iters].clone()
+
+
 def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
                      c2ws, pose_mask, slot_kf, lines, n_slots, imagery,
                      idx: int, draws, iters: int, lr_factor: float,
                      joint_opt: bool, vis_hook=None, vis_every: int = 1,
                      sharded: bool = False, zero_opt: bool = False,
-                     min_rows: int = ZERO_MIN_ROWS):
+                     min_rows: int = ZERO_MIN_ROWS, graph=None,
+                     replay: bool = False):
     """The iterations over one window, then the masked pose write-back.
 
     ``c2ws`` (w_max, 4, 4) are the window's starting poses, ``slot_kf``
@@ -347,12 +651,19 @@ def _optimize_window(loss_fn, make_optimizer, ms: MapState, store, est,
     ``vis_hook(m, ms, c2w)``, when given, is called before iteration m's
     step for every multiple m of ``vis_every`` with 0 < m < iters, with
     the map after m iterations and the current frame's pose (slot
-    n_slots - 1); without it the loop reads nothing back.
+    n_slots - 1); without it the loop reads nothing back.  ``graph`` (a
+    ``MapGraph``): the iterations run there, replayed or (``replay``
+    False) eagerly, instead of in ``_iterate``.
     Returns the losses (iters,) on the device."""
-    poses = matrix_to_cam_pose(c2ws).requires_grad_()
-    losses = _iterate(loss_fn, make_optimizer, ms, poses, pose_mask, lines,
-                      n_slots, imagery, draws, iters, lr_factor, sharded,
-                      vis_hook, vis_every, zero_opt, min_rows)
+    if graph is not None:
+        poses, losses = graph(ms, c2ws, pose_mask, lines, n_slots, imagery,
+                              draws, iters, lr_factor, replay, vis_hook,
+                              vis_every)
+    else:
+        poses = matrix_to_cam_pose(c2ws).requires_grad_()
+        losses = _iterate(loss_fn, make_optimizer, ms, poses, pose_mask,
+                          lines, n_slots, imagery, draws, iters, lr_factor,
+                          sharded, vis_hook, vis_every, zero_opt, min_rows)
     with torch.no_grad(), trace.span("map.writeback"):
         # Keyframe poses of the optimized window slots; the trajectory
         # only for the current frame, under joint_opt.
@@ -415,11 +726,15 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
     (iters,) on the device.  ``ms``, ``store`` and ``est`` are updated in
     place; the packed store takes the packet's bytes as they are.
     ``vis_hook``: the in-loop panels (``_optimize_window``).  Draws: the
-    selector's, then each iteration's (``loss_fn``).
+    selector's, then each iteration's (``loss_fn``).  The iterations are
+    replayed from one captured graph where ``replayable`` says so (the
+    module's docstring).
     """
     loss_fn, make_optimizer = _build_core(cfg, scene, cam, importance,
                                           packed, sharded, queries_factory,
                                           spmd)
+    graph = None if sharded else MapGraph(loss_fn, make_optimizer)
+    own_queries = queries_factory is None
 
     def map_frame(ms: MapState, store: KeyframeStore, est, color_u8,
                   depth_u16, inv_q: float, gt_c2w, idx: int, draws, *,
@@ -440,11 +755,12 @@ def make_frame_mapper(cfg: dict, scene: SceneGeometry, cam: Camera,
             c2ws = store.est_c2w[slot_kf]
             is_cur = torch.arange(w_max, device=est.device) == n_slots - 1
             c2ws = torch.where(is_cur[:, None, None], cur_c2w[None], c2ws)
+        replay = replayable(est, sharded, own_queries, vis_hook)
         losses = _optimize_window(
             loss_fn, make_optimizer, ms, store, est, c2ws, pose_mask,
             slot_kf, slot_kf, n_slots, imagery, idx, draws, iters,
             lr_factor, joint_opt, vis_hook, vis_every, sharded, zero_opt,
-            min_rows)
+            min_rows, graph, replay)
         with torch.no_grad():
             # Admission: the scratch slot's imagery and poses go to slot
             # ``count``; without admission the poses stay in the scratch.

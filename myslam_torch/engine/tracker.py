@@ -78,6 +78,7 @@ from myslam_torch.ops.plane_sample import pack_quad
 from myslam_torch.parallel import distributed
 from myslam_torch.render.renderer import SceneGeometry, render_rays
 from myslam_torch.utils import trace
+from myslam_torch.utils.graphs import CountedGraph
 
 ADAM_BETAS = (0.5, 0.999)
 # A capturing frame's first iterations, run eagerly on a side stream
@@ -159,8 +160,7 @@ class StaticFrame:
         self.best_pose = torch.zeros(7, device=dev)
         self.losses = torch.zeros(iters, device=dev)
         self.poses = torch.zeros((iters, 7), device=dev)
-        self.graph = None
-        self.launches: dict = {}
+        self.graph: CountedGraph | None = None
 
     @torch.no_grad()
     def load(self, quads, pose_init, px, draws) -> None:
@@ -223,38 +223,21 @@ class StaticFrame:
             it.add_(1)
 
     def capture(self, ms: MapState) -> int:
-        """Run the loaded frame's first iterations eagerly on a side
-        stream (they set up what a capture cannot: the kernel library,
-        cached constants, library handles, Adam's state), then capture
-        the body; a capture runs nothing, so the frame goes on from
-        there.  The capture's K1/K2 launches are kept for the replays and
-        taken back from ``LAUNCHES``.  Returns the iterations run."""
-        dev = self.R.device
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
+        """Run the loaded frame's first iterations eagerly, then capture
+        the body (``utils/graphs.CountedGraph``, which keeps the
+        capture's K1/K2 launches for the replays); a capture runs
+        nothing, so the frame goes on from there.  Returns the
+        iterations run."""
         warm = min(WARMUP_ITERS, self.iters)
-        with torch.cuda.stream(side):
+
+        def warm_up():
             for _ in range(warm):
                 self.body(ms)
-        cur.wait_stream(side)
-        before = dict(cuda_sample.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        # Other threads (the frame prefetcher's uploads) may use the
-        # device while this one captures.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.body(ms)
-        self.launches = {k: n - before[k] for k, n in
-                         cuda_sample.LAUNCHES.items() if n != before[k]}
-        for k, n in self.launches.items():
-            cuda_sample.LAUNCHES[k] -= n
-        self.graph = graph
-        return warm
 
-    def replay(self) -> None:
-        self.graph.replay()
-        for k, n in self.launches.items():
-            cuda_sample.LAUNCHES[k] += n
+        self.graph = CountedGraph(self.R.device, warm_up,
+                                  lambda: self.body(ms),
+                                  (cuda_sample.LAUNCHES,))
+        return warm
 
 
 class TrackCore:
@@ -303,7 +286,7 @@ class TrackCore:
                     GRAPH_COUNTS["eager_iters"] += done
                 for _ in range(self.iters - done):
                     with trace.span("track.iter"):
-                        st.replay()
+                        st.graph.replay()
             GRAPH_COUNTS["replays"] += self.iters - done
         return st.best_pose.clone(), st.losses.clone(), st.poses.clone()
 

@@ -522,7 +522,8 @@ def run_system(config: str, seed: int = 0, device=None,
     bytes on this rank, and the device bytes above what it held that this
     rank takes for a checkpoint of the last frame, written after the
     loop; whether tracking is sharded and how it ran
-    (``engine/tracker.GRAPH_COUNTS``); the bytes of Adam's atlas moments on this rank in the last
+    (``engine/tracker.GRAPH_COUNTS``) and how mapping ran
+    (``engine/mapper.GRAPH_COUNTS``); the bytes of Adam's atlas moments on this rank in the last
     mapped frame (``engine/mapper.ADAM_BYTES``: the row-sharded Adam's);
     and for the host-staged store its host bytes, selection fetches,
     cache misses and bound lines, each line checked against its host
@@ -599,6 +600,7 @@ def run_system(config: str, seed: int = 0, device=None,
         slam.on_map_done = mapped_digest
     cuda_sample.reset_launches()
     tracker.GRAPH_COUNTS.update(captures=0, replays=0, eager_iters=0)
+    mapper.GRAPH_COUNTS.update(captures=0, replays=0, eager_iters=0)
     distributed.reset_counts()
     mapper.ADAM_BYTES.update(atlas_moments=0, atlas_moments_replicated=0)
     distributed.TRACE = []
@@ -655,6 +657,7 @@ def run_system(config: str, seed: int = 0, device=None,
         "schur_launches": dict(distributed_ba.SCHUR_LAUNCHES),
         "track_sharded": slam.track_sharded,
         "graph_counts": dict(tracker.GRAPH_COUNTS),
+        "map_graph_counts": dict(mapper.GRAPH_COUNTS),
         "collectives": {k: dict(v) for k, v in distributed.COUNTS.items()},
         "store_mode": slam.store.mode,
         "store_capacity": slam.store.capacity,

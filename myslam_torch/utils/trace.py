@@ -31,8 +31,10 @@ the loop's thread:
     launch of one graph replay on its replayed path; ``track.capture``
     around the replayed path's capture;
   * ``map.frame`` (the mapped frame) holding ``map.select``, per
-    iteration ``map.iter`` with ``map.loss``, ``map.backward`` and
-    ``map.step``, then ``map.writeback``;
+    iteration ``map.iter``: with ``map.loss``, ``map.backward`` and
+    ``map.step`` on the mapper's eager path, the launch of one graph
+    replay and ``map.step`` on its replayed path; ``map.capture`` around
+    the replayed path's capture; then ``map.writeback``;
   * ``render.importance`` (``render/renderer.py``): the importance
     branch's coarse SDF pass, ``sample_pdf`` and the sort, under the
     caller's span (``map.loss`` on mapping's path);

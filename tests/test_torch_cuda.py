@@ -952,3 +952,159 @@ def test_cumprod_positive_matches_torch_bit_for_bit_on_the_card(dev, shape):
     from test_torch_track_graph import check_cumprod_positive
 
     check_cumprod_positive(shape, dev)
+
+
+def map_three_frames(dev, importance, packed, replay, iters=15, seed=13):
+    """Three mapped frames of ``iters`` iterations each on the card,
+    replayed (``replay``) or with the body run eagerly, the third after
+    the SDF atlas is replaced.  Each replayed iteration is followed from
+    its own state, as the benchmark's check follows the program: before
+    its step the body runs eagerly at the same map and poses on the
+    iteration's draws as they were drawn (not the graph's slots), and
+    Adam's step is taken once with those gradients and once, for real,
+    with the replay's ``.grad``, from the same state.  Returns, per
+    frame, the losses, the loss gap and step gap of each followed
+    iteration (``map_loss_gap`` and ``map_steps_gap`` as
+    ``slambench/check.py`` measures them) and the K1/K2 launches of the
+    frame's own iterations; and the trajectory."""
+    import copy
+
+    from myslam_torch.core.sampling import TorchDraws
+    from myslam_torch.engine import mapper
+    from slambench.check import leaf_gaps, rel
+    from test_torch_map_graph import Recording, setup_case
+
+    make = mapper.make_map_optimizer
+    kernels = ("plane_sample_fwd", "plane_sample_bwd")
+    made, frames = [], []
+    init = mapper.StaticMap.__init__
+
+    def noting_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    class Drawn:
+        """One iteration's recorded draws, served in order."""
+
+        def __init__(self, kept):
+            self.kept = list(kept)
+
+        def _take(self, kind, shape):
+            got, t = self.kept.pop(0)
+            assert got == kind and tuple(t.shape) == tuple(shape)
+            return t
+
+        def uniform(self, shape):
+            return self._take("uniform", shape)
+
+        def randint(self, shape, low, high):
+            return self._take("randint", shape)
+
+    def wrapped(cfg, ms, poses, lr_factor):
+        opt = make(cfg, ms, poses, lr_factor)
+        params = mapper.optimizer_params(opt)
+        st = made[-1]
+        rec = {"loss_gaps": [], "step_gaps": [], "extra": 0}
+        step = opt.step
+
+        def follow():
+            if st.graph is None:  # an eager iteration: nothing to follow
+                return step()
+            k = int(st.it) - 1
+            before = sum(cuda_sample.LAUNCHES[n] for n in kernels)
+            drawn = Drawn(draws.kept[-len(st.schedule):])
+            loss = st.loss_fn(ms, st.poses, st.pose_mask, st.lines,
+                              st.n_slots, *st.imagery, drawn)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            rec["extra"] += sum(cuda_sample.LAUNCHES[n]
+                                for n in kernels) - before
+            live = [n for n, g in enumerate(grads) if g is not None]
+            start = [p.detach().clone() for p in params]
+            state = copy.deepcopy(opt.state_dict())
+            replayed = [p.grad for p in params]
+            for p, g in zip(params, grads):
+                p.grad = g
+            step()
+            ref = [p.detach().clone() for p in params]
+            with torch.no_grad():
+                for p, x in zip(params, start):
+                    p.copy_(x)
+            opt.load_state_dict(state)
+            for p, g in zip(params, replayed):
+                p.grad = g
+            step()
+            rec["loss_gaps"].append(rel(float(st.losses[k]),
+                                        float(loss.detach())))
+            rec["step_gaps"].append(leaf_gaps(
+                {n: params[n].detach() for n in live},
+                {n: ref[n] for n in live}, {n: start[n] for n in live},
+                {n: grads[n] for n in live}))
+
+        opt.step = follow
+        frames.append(rec)
+        return opt
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mapper, "make_map_optimizer", wrapped)
+        mp.setattr(mapper.StaticMap, "__init__", noting_init)
+        if not replay:
+            mp.setattr(mapper, "replayable", lambda *a, **k: False)
+        map_frame, ms, store, est, args = setup_case(
+            dev, importance, packed, n_rays=2048, iters=iters)
+        draws = Recording(TorchDraws(seed, dev))
+        for f in range(3):
+            if f == 2:
+                ms.sdf_atlas = ms.sdf_atlas.detach().clone().requires_grad_()
+            before = sum(cuda_sample.LAUNCHES[k] for k in kernels)
+            losses = map_frame(ms, store, est, *args, draws, iters=iters,
+                               lr_factor=1.0, joint_opt=True, admit=False)
+            torch.cuda.synchronize()
+            frames[f]["losses"] = losses.clone()
+            frames[f]["launches"] = sum(cuda_sample.LAUNCHES[k] for k in
+                                        kernels) - before - frames[f]["extra"]
+    return frames, est.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("importance,packed", [(False, False), (True, True)])
+def test_replayed_mapper_matches_the_eager_one(dev, importance, packed):
+    """The frame mapper's replayed iterations (``engine/mapper.py``)
+    against the same body run eagerly on the card
+    (``map_three_frames``): two mapped frames of 15 iterations each,
+    then a third after the SDF atlas is replaced.  Every replayed
+    iteration, followed from its own state, within ``replica_dense``'s
+    ``map_loss_gap`` and ``map_steps_gap`` (``slambench/limits/``);
+    K1/K2 launches per frame equal to the eager path's; one capture for
+    the first two frames (its frame's first iterations run eagerly),
+    another for the replaced atlas.  Float store without the importance
+    branch, as ``replica_dense`` maps, and packed store with it, as
+    ``tum_holes``.  Two runs are not compared with each other: K2's
+    atomics part them, and the importance branch's sort turns that into
+    step gaps up to 0.5 within 45 iterations, eager against eager."""
+    import json
+
+    from myslam_torch.engine import mapper
+
+    with open("slambench/limits/replica_dense.json") as f:
+        limits = json.load(f)["limits"]
+    iters = 15
+    counts0 = dict(mapper.GRAPH_COUNTS)
+    graph, _ = map_three_frames(dev, importance, packed, True, iters)
+    counts1 = dict(mapper.GRAPH_COUNTS)
+    warm = min(mapper.WARMUP_ITERS, iters)
+    assert counts1["captures"] - counts0["captures"] == 2
+    assert counts1["replays"] - counts0["replays"] == 3 * iters - 2 * warm
+    assert counts1["eager_iters"] - counts0["eager_iters"] == 2 * warm
+    eager, _ = map_three_frames(dev, importance, packed, False, iters)
+    counts2 = dict(mapper.GRAPH_COUNTS)
+    assert counts2["eager_iters"] - counts1["eager_iters"] == 3 * iters
+    assert counts2["replays"] == counts1["replays"]
+
+    per_iter = 2 * 2 + (1 if importance else 0)
+    followed = [len(g["step_gaps"]) for g in graph]
+    assert followed == [iters - warm, iters, iters - warm]
+    for g, e in zip(graph, eager):
+        assert g["launches"] == e["launches"] == per_iter * iters
+        assert not e["step_gaps"]
+        assert max(g["loss_gaps"]) <= limits["map_loss_gap"]
+        assert max(g["step_gaps"]) <= limits["map_steps_gap"]
